@@ -1,0 +1,580 @@
+"""Visual odometry pipeline orchestrator (serial visual path).
+
+Counterpart of dmvio_tpu/models/full_system.py, non-realtime visual
+branch (FullSystem::addActiveFrame / trackNewCoarse / makeKeyFrame /
+initializeFromInitializer / activatePointsMT / traceNewCoarse /
+flagFramesForMarginalization). Each frame is processed to completion:
+
+  per frame:     pyramid -> initializer (until initialized) -> coarse
+                 tracking of the 4-candidate ladder (32-candidate rescue
+                 batch when all fail) -> epipolar trace of the pool;
+  per keyframe:  insert -> activate points (kernel K1) -> windowed BA
+                 (kernel K1 in every linearization) -> fused marginalization
+                 tail (K1 again) + host float64 prior algebra -> tracker
+                 reference -> spawn new immature points.
+
+The port serves this path only: realtime mode, the inertial stack and
+multi-device BA raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from dmvio_tpu_torch import device as resolve_device
+from dmvio_tpu_torch.models import ba, coarse_tracker, initializer
+from dmvio_tpu_torch.models import window, window_ops
+from dmvio_tpu_torch.ops import ba_solve, immature, pyramid
+from dmvio_tpu_torch.utils import lie
+from dmvio_tpu_torch.utils.camera import Calib
+from dmvio_tpu_torch.utils.timing import TimeMeasurement
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+class FullSystem:
+    """Monocular visual odometry (serial).
+
+    device=None means "cuda" and raises when CUDA is absent; pass
+    device="cpu" to run on the CPU. `calib` is moved to that device."""
+
+    def __init__(self, calib: Calib, h: int, w: int,
+                 cfg: Optional[window.Config] = None, device=None,
+                 imu_calib=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg or window.Config()
+        if self.cfg.realtime:
+            raise NotImplementedError(
+                "dmvio_tpu_torch serves the serial path; realtime=True is "
+                "not ported yet")
+        if imu_calib is not None:
+            raise NotImplementedError(
+                "dmvio_tpu_torch serves the visual path; the inertial stack "
+                "is not ported yet")
+        if self.cfg.mesh_devices and self.cfg.mesh_devices > 1:
+            raise NotImplementedError(
+                "dmvio_tpu_torch runs on one device; mesh_devices > 1 is not "
+                "ported yet")
+        # Cap pyramid depth so the coarsest level keeps enough pixels.
+        while self.cfg.levels > 1 and \
+                (min(h, w) >> (self.cfg.levels - 1)) < 12:
+            self.cfg.levels -= 1
+        calib = calib.to(self.device)
+        self.calib = calib
+        self.h, self.w = h, w
+        self.win = window.Window(calib, h, w, self.cfg)
+        self.imm = immature.empty_pool(self.cfg.i_max, self.device)
+        self.init = initializer.VisualInitializer(
+            calib, h, w, n_points=min(1024, self.cfg.p_max),
+            levels=self.cfg.levels)
+        self.initialized = False
+        self.is_lost = False
+        self.frame_id = 0
+        self.first_id = 0
+        self.shells: List[window.FrameShell] = []
+        self.kf_poses = {}          # frame_id -> (R_cw, t_cw) numpy
+        self.tracker_ref = None
+        self.ref_kf_slot = -1
+        self.ref_kf_id = -1
+        self.ref_pose_np = (np.eye(3, dtype=np.float32),
+                            np.zeros(3, np.float32))
+        self.ref_aff_np = np.zeros(2, np.float32)
+        self.T_last_ref = (np.eye(3, dtype=np.float32),
+                           np.zeros(3, np.float32))
+        self.motion = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        self.last_rho = 0.0
+        self.last_b = 0.0
+        self.track_energy_ref = 1.0
+        self._n_active = 0.0
+        self.stats_kf = 0
+        self.stats_lost_frames = 0
+        self.stats_resets = 0
+        self._consec_lost = 0
+        self._last_exposure = None
+        self._frame_th_dev = None
+        self._frame_th_np = None
+
+    def _t(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def add_frame(self, img, timestamp: float, imu_data=None,
+                  exposure: float = 1.0) -> None:
+        """Feed one photometrically corrected [H, W] image (a tensor or a
+        numpy array; moved to the system's device)."""
+        if imu_data is not None:
+            raise NotImplementedError("IMU data given to the visual path")
+        img = self._t(img)
+        fid = self.frame_id
+        self.frame_id += 1
+        e_exp = max(float(exposure), 1e-6)
+        if self._last_exposure is not None and e_exp != self._last_exposure:
+            dlog = float(np.log(e_exp) - np.log(self._last_exposure))
+            self.last_rho += dlog
+            if not self.initialized:
+                self.init.shift_rho(dlog)
+        self._last_exposure = e_exp
+        with TimeMeasurement("pyramid"):
+            pyr = tuple(pyramid.build_pyramid(img, levels=self.cfg.levels))
+
+        if fid == self.first_id:
+            self.init.set_first(pyr)
+            self._first_pyr = pyr
+            self._first_ts = timestamp
+            self.shells.append(window.FrameShell(
+                frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
+                R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True))
+            return
+
+        if not self.initialized:
+            with TimeMeasurement("initializer"):
+                r = self.init.try_init(pyr)
+            self.shells.append(window.FrameShell(
+                frame_id=fid, timestamp=timestamp, ref_kf_id=self.first_id,
+                R_c_ref=_np(self.init.last_R), t_c_ref=_np(self.init.last_t)))
+            if r is not None:
+                self._initialize(r, pyr, timestamp, fid)
+            elif fid - self.first_id > 60:
+                # Give up and restart from the current frame.
+                self.first_id = fid
+                self.init.set_first(pyr)
+                self._first_pyr = pyr
+                self._first_ts = timestamp
+                self.shells[-1] = window.FrameShell(
+                    frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
+                    R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True)
+            return
+
+        with TimeMeasurement("coarse_tracking"):
+            res, pk, need_kf = self._track_frame(pyr)
+        self.shells.append(window.FrameShell(
+            frame_id=fid, timestamp=timestamp, ref_kf_id=self.ref_kf_id,
+            R_c_ref=pk.R.copy(), t_c_ref=pk.t.copy()))
+        R_cw, t_cw, aff_new = window_ops.compose_abs_pose(
+            res.R, res.t, res.rho, res.b_aff, self.win.frames,
+            self.ref_kf_slot)
+        with TimeMeasurement("trace"):
+            self._trace_pool(R_cw, t_cw, aff_new, pyr)
+        if need_kf and not self.is_lost:
+            # Never build a keyframe from an untracked pose.
+            with TimeMeasurement("keyframe_total"):
+                self._make_keyframe(pyr, timestamp, fid, R_cw, t_cw, aff_new)
+
+        # Algorithmic self-reset: a dead map or sustained loss.
+        self._consec_lost = self._consec_lost + 1 if self.is_lost else 0
+        map_dead = self.initialized and self._n_active < 25 \
+            and self.stats_kf > 3
+        if map_dead or self._consec_lost > 8:
+            self._full_reset(pyr, timestamp, fid)
+
+    def finish(self) -> None:
+        """Nothing is in flight in the serial path."""
+
+    # ------------------------------------------------------------------
+    def _rescue_candidates(self):
+        """32-candidate rescue batch: motion variants + 26 rotation-
+        perturbed constant-motion initializations (FullSystem.cpp:369-399)."""
+        mR, mt = self.motion
+        lR, lt = self.T_last_ref
+        cv_R, cv_t = mR @ lR, mR @ lt + mt
+        w_half = lie.log_so3_np(np.asarray(mR, np.float64)) * 0.5
+        R_half = lie.exp_so3_np(w_half).astype(np.float32)
+        cands = [
+            (cv_R, cv_t),                                  # const motion
+            (mR @ cv_R, mR @ cv_t + mt),                   # double motion
+            (R_half @ lR, R_half @ lt + 0.5 * mt),         # half motion
+            (lR, lt),                                      # zero motion
+            (np.eye(3, dtype=np.float32),
+             np.zeros(3, np.float32)),                     # zero from KF
+        ]
+        delta = 0.04
+        for sx in (-1, 0, 1):
+            for sy in (-1, 0, 1):
+                for sz in (-1, 0, 1):
+                    if sx == sy == sz == 0:
+                        continue
+                    dR = lie.exp_so3_np(delta * np.array(
+                        [sx, sy, sz], np.float64)).astype(np.float32)
+                    cands.append((cv_R @ dR, cv_t))
+        C = 32
+        R_c = np.zeros((C, 3, 3), np.float32)
+        t_c = np.zeros((C, 3), np.float32)
+        mask_c = np.zeros(C, bool)
+        for k, (R0, t0) in enumerate(cands[:C]):
+            R_c[k] = R0
+            t_c[k] = t0
+            mask_c[k] = True
+        return R_c, t_c, mask_c
+
+    def _track_multi(self, pyr, R_c, t_c, mask_c):
+        gate = (self.cfg.track_gate_scale * self.track_energy_ref
+                + self.cfg.track_gate_offset)
+        res, packed = coarse_tracker.track_multi(
+            self.tracker_ref, pyr, self.calib, self._t(R_c), self._t(t_c),
+            self._t(mask_c, torch.bool), self._t(self.last_rho),
+            self._t(self.last_b), self._t(gate), levels=self.cfg.levels)
+        # ONE small fetch carries every stat the host needs.
+        return res, coarse_tracker.PackedTrack(_np(packed), self.cfg.levels)
+
+    def _rescue_track(self, pyr):
+        """Last-resort tracking with the big perturbation batch."""
+        return self._track_multi(pyr, *self._rescue_candidates())
+
+    def _track_frame(self, pyr):
+        """Coarse tracking of the candidate ladder [unused pad, constant
+        velocity, zero motion, identity] with on-device selection."""
+        mR, mt = self.motion
+        lR, lt = self.T_last_ref
+        R_c = np.zeros((4, 3, 3), np.float32)
+        t_c = np.zeros((4, 3), np.float32)
+        mask_c = np.zeros(4, bool)
+        R_c[0] = np.eye(3)
+        R_c[1] = mR @ lR
+        t_c[1] = mR @ lt + mt
+        R_c[2] = lR
+        t_c[2] = lt
+        R_c[3] = np.eye(3)
+        mask_c[1:] = True
+        res, pk = self._track_multi(pyr, R_c, t_c, mask_c)
+        if not pk.any_valid:
+            res3, pk3 = self._rescue_track(pyr)
+            if pk3.any_valid:
+                res, pk = res3, pk3
+        best = pk
+        best_e = float(pk.level_energy[0])
+        if not pk.any_valid:
+            self.is_lost = True
+            self.stats_lost_frames += 1
+            # Report the constant-velocity prediction as this frame's pose.
+            pk.R = (mR @ lR).astype(np.float32)
+            pk.t = (mR @ lt + mt).astype(np.float32)
+            pk.rho, pk.b_aff = self.last_rho, self.last_b
+        else:
+            self.is_lost = False
+            self.track_energy_ref = min(
+                0.7 * self.track_energy_ref + 0.3 * best_e,
+                self.cfg.track_gate_cap)
+            lR_new = best.R
+            lt_new = best.t
+            self.motion = (lR_new @ lR.T, lt_new - lR_new @ lR.T @ lt)
+            self.T_last_ref = (lR_new, lt_new)
+            self.last_rho = best.rho
+            self.last_b = best.b_aff
+
+        # Keyframe decision on host floats (FullSystem.cpp:1038-1100).
+        cfg = self.cfg
+        score = cfg.kf_weight * (
+            cfg.w_flow_t * best.flow_t / (self.w + self.h)
+            + cfg.w_flow_rt * best.flow_rt / (self.w + self.h)
+            + cfg.w_aff * abs(best.rho))
+        return res, best, score > 1.0
+
+    def _trace_pool(self, R_cw, t_cw, aff_new, pyr):
+        """Trace all immature points against the new frame."""
+        f = self.win.frames
+        host = self.imm.host.long()
+        self.imm = immature.trace(self.imm, f.R_cw[host], f.t_cw[host],
+                                  f.aff[host], R_cw, t_cw, aff_new, pyr[0],
+                                  self.calib)
+
+    # ------------------------------------------------------------------
+    def _full_reset(self, pyr, timestamp, fid) -> None:
+        """Rebuild the visual window from the current frame."""
+        self.stats_resets += 1
+        self._consec_lost = 0
+        self.win = window.Window(self.calib, self.h, self.w, self.cfg)
+        self.imm = immature.empty_pool(self.cfg.i_max, self.device)
+        self.initialized = False
+        self.is_lost = False
+        self.tracker_ref = None
+        self.ref_kf_slot = -1
+        self.ref_kf_id = -1
+        self._n_active = 0.0
+        self.track_energy_ref = 1.0
+        self.T_last_ref = (np.eye(3, dtype=np.float32),
+                           np.zeros(3, np.float32))
+        self.motion = (np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+        self.last_rho = 0.0
+        self.last_b = 0.0
+        self.first_id = fid
+        self.init.set_first(pyr)
+        self._first_pyr = pyr
+        self._first_ts = timestamp
+        for k in range(len(self.shells) - 1, -1, -1):
+            if self.shells[k].frame_id == fid:
+                self.shells[k] = window.FrameShell(
+                    frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
+                    R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True)
+                break
+
+    def _initialize(self, r: initializer.InitResult, pyr, ts, fid):
+        cfg = self.cfg
+        w = self.win
+        dev = self.device
+        w.insert_frame(0, self.first_id, self._first_pyr,
+                       torch.eye(3, device=dev), torch.zeros(3, device=dev),
+                       torch.zeros(2, device=dev))
+        w.set_frame_prior(0, cfg.first_pose_prior, cfg.first_aff_prior,
+                          cfg.first_aff_prior)
+        aff1 = torch.stack([r.rho, r.b_aff]).to(torch.float32)
+        w.insert_frame(1, fid, pyr, r.R, r.t, aff1)
+        w.set_frame_prior(1, 0.0, cfg.aff_a_prior, cfg.aff_b_prior)
+        hosts = np.zeros(r.u.shape[0], np.int32)
+        w.add_points(hosts, r.u, r.v, r.idepth, r.color, r.weight, r.mask)
+
+        self._run_ba(max_iters=8)
+        w.set_fej_to_current(0)
+        w.set_fej_to_current(1)
+        self._record_kf_poses()
+
+        self.shells[-1] = window.FrameShell(
+            frame_id=fid, timestamp=ts, ref_kf_id=fid,
+            R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True)
+        # Rescale the pre-init shells into the final map scale (host f64).
+        t1_ba = self.kf_poses.get(fid, (None, None))[1]
+        f_corr = float(r.scale)
+        raw = float(np.linalg.norm(_np(r.t))) / max(f_corr, 1e-12)
+        if t1_ba is not None and raw > 1e-9:
+            f_corr = float(np.linalg.norm(t1_ba)) / raw
+        for sh in self.shells:
+            if self.first_id < sh.frame_id < fid \
+                    and sh.ref_kf_id == self.first_id:
+                sh.t_c_ref = sh.t_c_ref * f_corr
+        self._set_tracker_ref(1, fid)
+        self._spawn_immatures(1, pyr)
+        self.initialized = True
+        self.stats_kf = 2
+
+    # ------------------------------------------------------------------
+    def _make_keyframe(self, pyr, ts, fid, R_cw, t_cw, aff_new):
+        cfg = self.cfg
+        w = self.win
+        slot = w.free_frame_slot()
+        w.insert_frame(slot, fid, pyr, R_cw, t_cw, aff_new)
+        w.set_frame_prior(slot, 0.0, cfg.aff_a_prior, cfg.aff_b_prior)
+        self.shells[-1].is_kf = True
+        self.stats_kf += 1
+        with TimeMeasurement("activate"):
+            self._activate_points(slot)
+        snap = (w.frames, w.points, w.pair_mask, w.calib)
+        with TimeMeasurement("ba_optimize"):
+            ba_res = self._run_ba(max_iters=cfg.ba_iters)
+        if self.stats_kf <= 4 and \
+                self._init_failed(float(self._ba_rmse_dev(ba_res))):
+            # Initialization failed (FullSystem.cpp:1417-1434).
+            self._full_reset(pyr, ts, fid)
+            return
+        w.frames = window_ops.set_fej_current(w.frames, slot)
+        with TimeMeasurement("marg_tail"):
+            pose_pack_np = self._kf_fused_tail(slot, snap)
+        pose_pack = self._record_kf_poses(pose_pack_np)
+        with TimeMeasurement("tracker_ref"):
+            self._set_tracker_ref(slot, fid, pose_pack)
+        with TimeMeasurement("spawn_immatures"):
+            self._spawn_immatures(slot, pyr)
+
+    def _problem(self) -> ba.BAProblem:
+        w = self.win
+        return ba.BAProblem(
+            frames=w.frames, points=w.points, calib=w.calib,
+            calib0=w.calib0, HM=self._t(w.HM), bM0=self._t(w.bM0),
+            prior_diag=self._t(w.prior_diag), pair_mask=w.pair_mask)
+
+    def _run_ba(self, max_iters: int):
+        w = self.win
+        result = ba.optimize(self._problem(), w.images, max_iters=max_iters)
+        self._frame_th_dev = result.frame_th
+        w.frames = result.frames
+        w.points = result.points
+        w.calib = result.calib
+        self.calib = result.calib
+        w.points, w.pair_mask = window_ops.post_ba_update(
+            w.points, w.pair_mask, result.pair_outlier)
+        return result
+
+    def _ba_rmse_dev(self, result):
+        """Photometric RMSE per pattern pixel of a BA result."""
+        w = self.win
+        pair_ok = w.pair_mask & w.points.mask[None, :] & ~result.pair_outlier
+        n = torch.sum(pair_ok.to(torch.float32))
+        return torch.sqrt(result.energy / torch.clamp(8.0 * n, min=1.0))
+
+    def _init_failed(self, rmse: float) -> bool:
+        th = {2: 20.0, 3: 13.0, 4: 9.0}.get(self.stats_kf)
+        return th is not None and (not np.isfinite(rmse) or rmse > th)
+
+    def _record_kf_poses(self, pack_np: Optional[np.ndarray] = None):
+        """Record window poses into kf_poses from one packed fetch."""
+        w = self.win
+        F = self.cfg.f_max
+        if pack_np is None:
+            pack_np = _np(window_ops.kf_pose_pack(w.frames))
+        R = pack_np[:9 * F].reshape(F, 3, 3)
+        t = pack_np[9 * F:12 * F].reshape(F, 3)
+        for s in range(F):
+            fid = w.slot_frame_id[s]
+            if fid is not None:
+                self.kf_poses[fid] = (R[s].copy(), t[s].copy())
+        return pack_np
+
+    def _activate_points(self, new_slot: int):
+        """Activate well-traced immatures with spatial spreading; the
+        radius follows the density of the previous keyframe."""
+        w = self.win
+        ratio = self._n_active / max(self.cfg.p_max, 1)
+        self.imm, w.points, w.pair_mask = window_ops.activate_and_admit(
+            self.imm, w.frames, w.points, w.pair_mask, w.images, w.calib,
+            new_slot, h=self.h, w=self.w,
+            radius=0 if ratio < 0.8 else (1 if ratio < 1.0 else 2),
+            use_spacing=ratio >= 0.5)
+
+    def _kf_fused_tail(self, newest_slot: int, snap) -> np.ndarray:
+        """Keyframe tail: victims + point-marg fold + drops on the device,
+        one host read, then the host prior algebra. Returns the pose pack.
+        A diverged BA (nearly every point dropped) is reverted once."""
+        w = self.win
+
+        def dispatch():
+            vlist, HM, bM, pts, pm, n_pre, n_post = \
+                self._dispatch_marg_fused(newest_slot)
+            with TimeMeasurement("kf_sync_stats"):
+                pose = window_ops.kf_pose_pack(w.frames)
+                host = [_np(x) for x in (vlist, HM, bM, n_pre, n_post, pose,
+                                         self._frame_th_dev)]
+            return host[:-1], (pts, pm), host[-1]
+
+        fetched, (pts_d, pm_d), self._frame_th_np = dispatch()
+        vlist, HM_np, bM_np, n_pre, n_post, pose_pack_np = fetched
+        if self._n_active > 60 and \
+                float(n_pre) < max(40.0, 0.15 * self._n_active):
+            w.frames, w.points, w.pair_mask, w.calib = snap
+            self.calib = w.calib
+            w.frames = window_ops.set_fej_current(w.frames, newest_slot)
+            fetched, (pts_d, pm_d), self._frame_th_np = dispatch()
+            vlist, HM_np, bM_np, n_pre, n_post, pose_pack_np = fetched
+        self._n_active = float(n_post)
+        self._apply_marg_host(vlist, HM_np, bM_np, pts_d, pm_d)
+        return pose_pack_np
+
+    def _dispatch_marg_fused(self, newest_slot: int):
+        w = self.win
+        cfg = self.cfg
+        slots = w.slots_by_age()
+        age_rank = np.full(cfg.f_max, -1, np.int32)
+        for r_, s_ in enumerate(slots):
+            age_rank[s_] = r_
+        n_drop = max(0, len(slots) - cfg.max_frames) if len(slots) > 2 else 0
+        return ba.marg_fused(self._problem(), w.images,
+                             self._t(age_rank, torch.int32), n_drop,
+                             newest_slot)
+
+    def _apply_marg_host(self, vlist, HM_np, bM_np, pts_new_d,
+                         pm_new_d) -> None:
+        """Host side of the marginalization: float64 prior algebra,
+        per-victim Schur, slot bookkeeping, immature/orphan pruning."""
+        w = self.win
+        Cv = ba_solve.cdim(self.cfg.f_max)
+        with TimeMeasurement("marginalize"):
+            w.points, w.pair_mask = pts_new_d, pm_new_d
+            w.HM = w.HM + np.asarray(HM_np, np.float64)
+            w.bM0 = w.bM0 + np.asarray(bM_np, np.float64)
+            victims = [int(s_) for s_ in vlist if s_ >= 0]
+            for s_ in victims:
+                w.frame_prior_into_HM(s_)
+                i0 = ba_solve.CPART + 8 * s_
+                mmask = np.zeros(Cv, bool)
+                mmask[i0:i0 + 8] = True
+                w.HM, w.bM0 = ba_solve.schur_out_np(w.HM, w.bM0, mmask)
+                w.frames, w.pair_mask = window_ops.drop_frame_slot(
+                    w.frames, w.pair_mask, s_)
+                w.pyramids[s_] = None
+                w.slot_frame_id[s_] = None
+            if victims:
+                vl = self._t(np.asarray(vlist), torch.int64)
+                is_victim = torch.any(
+                    self.imm.host.long()[None, :] == vl[:, None], dim=0)
+                self.imm = self.imm._replace(mask=self.imm.mask & ~is_victim)
+                w.points, w.pair_mask = window_ops.post_ba_update(
+                    w.points, w.pair_mask, torch.zeros_like(w.pair_mask))
+
+    # ------------------------------------------------------------------
+    def _build_tracker_ref_dev(self, slot: int) -> None:
+        """Project all points into the new KF and build the semi-dense
+        tracking reference (makeCoarseDepthL0)."""
+        w = self.win
+        u_p, v_p, d_p, valid = window_ops.project_into(
+            w.frames, w.points.host, w.points.u, w.points.v,
+            w.points.idepth, w.calib, slot)
+        hosted = w.points.host == slot
+        self.tracker_ref = coarse_tracker.make_tracker_ref(
+            w.pyramids[slot], w.calib,
+            torch.where(hosted, w.points.u, u_p),
+            torch.where(hosted, w.points.v, v_p),
+            torch.where(hosted, w.points.idepth, d_p),
+            w.points.mask & (hosted | valid))
+
+    def _tracker_ref_host_update(self, slot: int, fid: int,
+                                 pose_pack: np.ndarray) -> None:
+        """Pose caches + motion-model rebase from a fetched pose pack."""
+        F = self.cfg.f_max
+        prev = self.ref_kf_id
+        R_new_ref = pose_pack[:9 * F].reshape(F, 3, 3)[slot]
+        t_new_ref = pose_pack[9 * F:12 * F].reshape(F, 3)[slot]
+        aff_ref = pose_pack[12 * F:14 * F].reshape(F, 2)[slot]
+        if prev in self.kf_poses and prev != fid:
+            R_old, t_old = self.kf_poses[prev]
+            lR, lt = self.T_last_ref
+            R_w = lR @ R_old
+            t_w = lR @ t_old + lt
+            nR = R_w @ R_new_ref.T
+            nt = t_w - nR @ t_new_ref
+            self.T_last_ref = (nR.astype(np.float32), nt.astype(np.float32))
+        else:
+            self.T_last_ref = (np.eye(3, dtype=np.float32),
+                               np.zeros(3, np.float32))
+        self.ref_pose_np = (R_new_ref.copy(), t_new_ref.copy())
+        self.ref_aff_np = aff_ref.copy()
+        self.ref_kf_slot = slot
+        self.ref_kf_id = fid
+        self.last_rho = 0.0
+        self.last_b = 0.0
+
+    def _set_tracker_ref(self, slot: int, fid: int,
+                         pose_pack: Optional[np.ndarray] = None):
+        if pose_pack is None:
+            pose_pack = _np(window_ops.kf_pose_pack(self.win.frames))
+        self._build_tracker_ref_dev(slot)
+        self._tracker_ref_host_update(slot, fid, pose_pack)
+
+    def _spawn_immatures(self, slot: int, pyr):
+        """Select new candidate points in the newest KF (makeNewTraces)."""
+        self.imm = window_ops.respawn_immatures(
+            self.imm, self.win.frames, self.win.points, pyr[0],
+            self.win.calib, slot, h=self.h, w=self.w)
+
+    # ------------------------------------------------------------------
+    def trajectory(self):
+        """All frame poses as cam-to-world (timestamp, R_wc, t_wc)."""
+        self.finish()
+        out = []
+        for sh in self.shells:
+            if sh.frame_id in self.kf_poses:
+                R_cw, t_cw = self.kf_poses[sh.frame_id]
+            elif sh.ref_kf_id in self.kf_poses:
+                R_ref, t_ref = self.kf_poses[sh.ref_kf_id]
+                R_cw, t_cw = lie.se3_mul(
+                    *(torch.as_tensor(np.asarray(x), dtype=torch.float32)
+                      for x in (sh.R_c_ref, sh.t_c_ref, R_ref, t_ref)))
+                R_cw, t_cw = R_cw.numpy(), t_cw.numpy()
+            else:
+                R_cw, t_cw = sh.R_c_ref, sh.t_c_ref
+            R_wc, t_wc = lie.se3_inv(
+                torch.as_tensor(np.asarray(R_cw), dtype=torch.float32),
+                torch.as_tensor(np.asarray(t_cw), dtype=torch.float32))
+            out.append((sh.timestamp, R_wc.numpy(), t_wc.numpy()))
+        return out
