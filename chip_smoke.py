@@ -8,7 +8,9 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
     all started together) into build/kernels/;
  3. hold each kernel against its plain PyTorch version on the card, at the
     shapes the main path gives it and on edge cases, and time the kernel,
-    the plain version and a PyTorch library yardstick;
+    the plain version and a PyTorch library yardstick; time the launch
+    floor (a one-block no-op kernel through the same route) and sweep K1
+    over N = 512 .. 8192 points, printing kernel and bound times;
  4. drive the port's main path through its user entry point
     (FullSystem.add_frame): serial visual odometry at 512x512 with the
     reference operating point's window (F=8, P=2048), launch counters set
@@ -21,6 +23,7 @@ Imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -134,17 +137,23 @@ def call_ms(fn, reps: int = 25) -> float:
 # ---------------------------------------------------------------------------
 
 
-def k1_operating_inputs(dev):
+def k1_window(dev):
     """T=8 window frames of the smoke sequence as the [F, 3, H, W] stack,
-    N=2048 points selected in frame 0 with ground-truth inverse depth, and
-    their pattern pixels warped into every frame (u, v [8, 2048, 8])."""
+    with the scene, calibration and poses that made them."""
     calib = Calib.create(380.0, 380.0, W / 2 - 0.5, H / 2 - 0.5, dev)
     scene = synthetic.default_scene(2.0, device=dev)
-    T, N = 8, 2048
-    poses = [tuple(x.to(dev) for x in pose(2 * i)) for i in range(T)]
+    poses = [tuple(x.to(dev) for x in pose(2 * i)) for i in range(8)]
     stack = torch.stack([pyramid.build_pyramid(
         synthetic.render(scene, R, t, calib, H, W), levels=1)[0]
         for R, t in poses])                                  # [T, 3, H, W]
+    return scene, calib, poses, stack
+
+
+def k1_points(win, N: int):
+    """N points selected in frame 0 of the window with ground-truth inverse
+    depth, their pattern pixels warped into every frame: u, v [8, N, 8]."""
+    scene, calib, poses, stack = win
+    dev = stack.device
     sel = select.select_points(stack[0], N, pot=4)
     idepth = synthetic.gt_idepth(scene, *poses[0], calib, sel.u, sel.v)
     pat = torch.as_tensor(PATTERN, device=dev)
@@ -160,12 +169,15 @@ def k1_operating_inputs(dev):
         p = ray @ R_th.T + t_th * idepth[:, None, None]
         us.append(p[..., 0] / p[..., 2] * calib.fx + calib.cx)
         vs.append(p[..., 1] / p[..., 2] * calib.fy + calib.cy)
-    return stack, torch.stack(us), torch.stack(vs)
+    return torch.stack(us), torch.stack(vs)
 
 
 def k1_edge_inputs(dev):
-    """Edge cases: image-edge anchors, out-of-patch stretch, and centres at
-    +-1e10, +-inf and NaN (whole pattern rows follow their centre)."""
+    """Edge cases, each (label, img, u, v): image-edge anchors, out-of-patch
+    stretch and centres at +-1e10, +-inf and NaN (whole pattern rows follow
+    their centre); NaN in non-centre lanes of finite centres; every lane
+    clipped to a corner of the patch (stencils across all of it); the
+    pattern rotated by 45 degrees and scaled by 1.5."""
     rng = np.random.default_rng(7)
     h, w, N, K = 64, 96, 64, 8
     img = rng.uniform(0, 255, (2, h, w)).astype(np.float32)
@@ -177,12 +189,29 @@ def k1_edge_inputs(dev):
     vc[1, :8] = special[::-1]
     off = rng.uniform(-3, 3, (2, N, K)).astype(np.float32)
     off[:, 40:48] *= 6.0                                     # stretch
-    u = uc[..., None] + off
-    v = vc[..., None] + off[..., ::-1]
-    u[..., PATTERN_CENTER] = uc
-    v[..., PATTERN_CENTER] = vc
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return t(img), t(u), t(v)
+    inner_u = rng.uniform(10, w - 10, (2, N)).astype(np.float32)
+    inner_v = rng.uniform(10, h - 10, (2, N)).astype(np.float32)
+    lane_nan = np.where(rng.random((2, N, K)) < 0.2, np.nan, off)
+    corner = rng.choice([-20.0, 20.0], (2, N, K)) \
+        + rng.uniform(-1, 1, (2, N, K))
+    a = math.pi / 4
+    rot = 1.5 * np.array([[math.cos(a), -math.sin(a)],
+                          [math.sin(a), math.cos(a)]])
+    turned = PATTERN @ rot.T + rng.uniform(-0.3, 0.3, (2, N, K, 2))
+    cases = [("edge cases", uc, vc, off, off[..., ::-1]),
+             ("lane_nan", inner_u, inner_v, lane_nan, lane_nan[..., ::-1]),
+             ("corner", inner_u, inner_v, corner, corner[..., ::-1]),
+             ("rotated", inner_u, inner_v, turned[..., 0], turned[..., 1])]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
+                                  device=dev)
+    out = []
+    for label, cu, cv, du, dv in cases:
+        u = cu[..., None] + du
+        v = cv[..., None] + dv
+        u[..., PATTERN_CENTER] = cu
+        v[..., PATTERN_CENTER] = cv
+        out.append((label, t(img), t(u), t(v)))
+    return out
 
 
 def compare_k1(img, u, v, label: str) -> float:
@@ -254,20 +283,47 @@ def k1_library_fn(img, u, v):
     return fn
 
 
+def launch_floor_ms() -> float:
+    """Device time of K1's library's one-block no-op kernel, launched
+    through the same nvcc + ctypes route: the floor under every launch."""
+    fn = kernels.load("patch_sample").dmvio_noop
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def noop():
+        rc = fn(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"no-op kernel launch failed: CUDA error {rc}")
+    return device_ms(noop)
+
+
 def phase_kernels(dev):
-    stack, u, v = k1_operating_inputs(dev)
-    img = stack[:, 0]                     # strided view, as on the main path
+    win = k1_window(dev)
+    img = win[3][:, 0]                    # strided view, as on the main path
+    u, v = k1_points(win, 2048)
     err = compare_k1(img, u, v, "operating point T=8 N=2048 K=8")
-    e_img, e_u, e_v = k1_edge_inputs(dev)
-    err = max(err, compare_k1(e_img, e_u, e_v, "edge cases"))
+    for label, e_img, e_u, e_v in k1_edge_inputs(dev):
+        err = max(err, compare_k1(e_img, e_u, e_v, label))
     ms = device_ms(lambda: patch_sample.sample_patch3(img, u, v))
     plain_ms = device_ms(lambda: patch_sample.sample_patch3_plain(img, u, v))
     lib_ms = device_ms(k1_library_fn(img.contiguous(), u, v))
     kernel_call_ms = call_ms(lambda: patch_sample.sample_patch3(img, u, v))
     bound_ms, bound_by, nbytes = k1_bound(img, u, v)
-    log(f"K1 times (ms): kernel {ms:.5f} (eager call {kernel_call_ms:.5f}), "
-        f"plain {plain_ms:.5f}, grid_sample x5 {lib_ms:.5f}, bound "
-        f"{bound_ms:.6f} ({bound_by}, {nbytes} bytes)")
+    floor_ms = launch_floor_ms()
+    log(f"K1 times (ms): kernel {ms:.6f} (eager call {kernel_call_ms:.6f}), "
+        f"plain {plain_ms:.6f}, grid_sample x5 {lib_ms:.6f}, bound "
+        f"{bound_ms:.6f} ({bound_by}, {nbytes} bytes), share "
+        f"{bound_ms / ms:.3f}; launch floor {floor_ms:.6f}")
+    sweep = []
+    for n in (512, 1024, 2048, 4096, 8192):
+        su, sv = k1_points(win, n)
+        compare_k1(img, su, sv, f"sweep T=8 N={n} K=8")
+        k_ms = device_ms(lambda: patch_sample.sample_patch3(img, su, sv))
+        b_ms = k1_bound(img, su, sv)[0]
+        sweep.append({"N": n, "kernel_ms": k_ms, "bound_ms": b_ms,
+                      "bound_share": b_ms / k_ms})
+    log("K1 sweep: " + json.dumps({"T": 8, "K": 8, "floor_ms": floor_ms,
+                                   "points": sweep}))
     return {
         "name": "K1_patch_sample3", "route": "cuda",
         "source": "dmvio_tpu_torch/csrc/patch_sample.cu",
@@ -275,7 +331,8 @@ def phase_kernels(dev):
         "max_abs_err": err, "max_err": err, "ok_equal": True,
         "ms": ms, "kernel_ms": ms, "call_ms": kernel_call_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "bound_share": bound_ms / ms,
+        "floor_ms": floor_ms,
     }
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+import dmvio_tpu_torch
 from dmvio_tpu_torch.ops import interp, patch_sample
 from dmvio_tpu_torch.utils.camera import Calib, pattern
 
@@ -49,7 +50,10 @@ class ImmaturePoints(NamedTuple):
     mask: torch.Tensor        # [I] bool slot in use
 
 
-def empty_pool(capacity: int, device="cpu") -> ImmaturePoints:
+def empty_pool(capacity: int, device=None) -> ImmaturePoints:
+    """An empty pool of `capacity` slots on `device`; None means CUDA
+    (dmvio_tpu_torch.device)."""
+    device = dmvio_tpu_torch.device(device)
     f32 = dict(dtype=torch.float32, device=device)
     z = torch.zeros(capacity, **f32)
     return ImmaturePoints(

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from dmvio_tpu_torch.ops._cast import to_int32, wrap_int32
-from dmvio_tpu_torch.utils.camera import PATTERN_CENTER
+from dmvio_tpu_torch.utils.camera import PATTERN_CENTER, PATTERN_NUM
 
 PATCH = 16      # patch side
 MARGIN = 7      # patch anchor = floor(center) - MARGIN
@@ -106,8 +106,11 @@ def _check(img, u, v):
         raise TypeError("sample_patch3: float32 tensors expected")
     if img.shape[1] < PATCH or img.shape[2] < PATCH:
         raise ValueError("sample_patch3: image smaller than the patch")
-    if u.shape[-1] <= PATTERN_CENTER:
-        raise ValueError("sample_patch3: pattern axis too short")
+    if u.shape[-1] != PATTERN_NUM:
+        # The kernel maps each run of PATTERN_NUM threads to one (t, n)
+        # pair; the CPU refuses what the card refuses.
+        raise ValueError(f"sample_patch3: pattern axis must be "
+                         f"{PATTERN_NUM}, got {u.shape[-1]}")
 
 
 def sample_patch3(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
@@ -115,12 +118,13 @@ def sample_patch3(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
 
     `img` may be a strided view (channel 0 of the window's [F, 3, H, W]
     stack): the kernel takes its frame and row strides, so no copy is made.
-    CPU tensors take the plain version; CUDA tensors launch K1."""
+    CPU tensors take the plain version; CUDA tensors launch K1. i, gx and
+    gy are views of one [3, T, N, K] allocation."""
     _check(img, u, v)
-    if img.device.type == "cpu":
+    dev = img.device
+    if dev.type == "cpu":
         return sample_patch3_plain(img, u, v)
-    if img.device.type != "cuda" or u.device != img.device \
-            or v.device != img.device:
+    if dev.type != "cuda" or u.device != dev or v.device != dev:
         raise ValueError("sample_patch3: tensors must share one CUDA device")
     if img.stride(2) != 1:
         raise ValueError("sample_patch3: image rows must be contiguous")
@@ -128,35 +132,38 @@ def sample_patch3(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     v = v.contiguous()
     T, N, K = u.shape
     _, H, W = img.shape
-    lib = _library()
-    out_i = torch.empty((T, N, K), dtype=torch.float32, device=img.device)
-    out_gx = torch.empty_like(out_i)
-    out_gy = torch.empty_like(out_i)
-    out_ok = torch.empty((T, N, K), dtype=torch.bool, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    rc = lib.dmvio_patch_sample3(
+    out = torch.empty((3, T, N, K), dtype=torch.float32, device=dev)
+    out_ok = torch.empty((T, N, K), dtype=torch.bool, device=dev)
+    p = out.data_ptr()
+    plane = 4 * T * N * K
+    rc = (_launch or _bind())(
         img.data_ptr(), img.stride(0), img.stride(1), u.data_ptr(),
-        v.data_ptr(), out_i.data_ptr(), out_gx.data_ptr(), out_gy.data_ptr(),
-        out_ok.data_ptr(), T, N, K, H, W, PATTERN_CENTER, stream)
+        v.data_ptr(), p, p + plane, p + 2 * plane, out_ok.data_ptr(),
+        T, N, K, H, W, PATTERN_CENTER,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"patch_sample3 kernel launch failed: CUDA error "
                            f"{rc}")
     sample_patch3.launches += 1
-    return out_i, out_gx, out_gy, out_ok
+    return (*out.unbind(0), out_ok)
 
 
 sample_patch3.launches = 0
 
+# The C entry point of K1, bound with its argument types on first use.
+_launch = None
 
-def _library():
+
+def _bind():
+    global _launch
     from dmvio_tpu_torch import kernels
 
-    lib = kernels.load("patch_sample")
-    fn = lib.dmvio_patch_sample3
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        ll = ctypes.c_longlong
-        i = ctypes.c_int
-        fn.argtypes = [p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+    fn = kernels.load("patch_sample").dmvio_patch_sample3
+    p = ctypes.c_void_p
+    ll = ctypes.c_longlong
+    i = ctypes.c_int
+    fn.argtypes = [p, ll, ll, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = ctypes.c_int
+    _launch = fn
+    return fn
+

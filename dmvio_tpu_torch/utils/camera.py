@@ -14,6 +14,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+import dmvio_tpu_torch
+
 # Number of pyramid levels (reference settings.h:52 PYR_LEVELS=6).
 PYR_LEVELS = 6
 
@@ -44,8 +46,10 @@ class Calib:
     cy: torch.Tensor
 
     @staticmethod
-    def create(fx, fy, cx, cy, device="cpu") -> "Calib":
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=device)
+    def create(fx, fy, cx, cy, device=None) -> "Calib":
+        """Intrinsics on `device`; None means CUDA (dmvio_tpu_torch.device)."""
+        dev = dmvio_tpu_torch.device(device)
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
         return Calib(f32(fx), f32(fy), f32(cx), f32(cy))
 
     @property

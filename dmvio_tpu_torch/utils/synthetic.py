@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+import dmvio_tpu_torch
 from dmvio_tpu_torch.utils import lie
 from dmvio_tpu_torch.utils.camera import Calib
 
@@ -26,9 +27,10 @@ class PlaneScene(NamedTuple):
     e2: torch.Tensor   # [3]
 
 
-def default_scene(depth: float = 2.0, device="cpu") -> PlaneScene:
-    """Fronto-parallel-ish plane at z = depth (world = first cam frame)."""
-    f32 = dict(dtype=torch.float32, device=device)
+def default_scene(depth: float = 2.0, device=None) -> PlaneScene:
+    """Fronto-parallel-ish plane at z = depth (world = first cam frame), on
+    `device`; None means CUDA (dmvio_tpu_torch.device)."""
+    f32 = dict(dtype=torch.float32, device=dmvio_tpu_torch.device(device))
     n = torch.tensor([0.15, -0.1, 1.0], **f32)
     n = n / torch.linalg.norm(n)
     X0 = torch.tensor([0.0, 0.0, depth], **f32)

@@ -13,6 +13,8 @@ import torch
 
 import dmvio_tpu_torch
 from dmvio_tpu_torch.models import full_system, window
+from dmvio_tpu_torch.ops import immature
+from dmvio_tpu_torch.utils import synthetic
 from dmvio_tpu_torch.utils.camera import Calib
 
 # The suite runs several workers on few cores: one intra-op thread per
@@ -30,8 +32,8 @@ import dmvio_tpu_torch
 from dmvio_tpu_torch.models import full_system, window
 from dmvio_tpu_torch.utils import synthetic
 from dmvio_tpu_torch.utils.camera import Calib
-calib = Calib.create(100.0, 100.0, 63.5, 47.5)
-scene = synthetic.default_scene(2.0)
+calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
+scene = synthetic.default_scene(2.0, device="cpu")
 img = synthetic.render(scene, torch.eye(3), torch.zeros(3), calib, 96, 128)
 fs = full_system.FullSystem(calib, 96, 128,
                             window.Config(f_max=4, p_max=128, i_max=128,
@@ -80,9 +82,26 @@ def test_default_device_is_cuda_and_raises_without_it():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         dmvio_tpu_torch.device()
-    calib = Calib.create(100.0, 100.0, 63.5, 47.5)
+    calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         full_system.FullSystem(calib, 96, 128, window.Config(levels=3))
+
+
+@pytest.mark.parametrize("make", [
+    lambda: Calib.create(100.0, 100.0, 63.5, 47.5),
+    lambda: synthetic.default_scene(2.0),
+    lambda: immature.empty_pool(16),
+], ids=["Calib.create", "synthetic.default_scene", "immature.empty_pool"])
+def test_constructors_default_to_cuda(make):
+    """Without `device`, a constructor puts its tensors on the card, and
+    raises where there is none, as FullSystem does."""
+    if torch.cuda.is_available():
+        made = make()
+        tensors = made if isinstance(made, tuple) else [made.fx]
+        assert all(x.device.type == "cuda" for x in tensors)
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make()
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -91,7 +110,7 @@ def test_default_device_is_cuda_and_raises_without_it():
     dict(imu_calib=object()),
 ])
 def test_unported_modes_refuse(kwargs):
-    calib = Calib.create(100.0, 100.0, 63.5, 47.5)
+    calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
     cfg = window.Config(levels=3, **kwargs.get("cfg", {}))
     with pytest.raises(NotImplementedError):
         full_system.FullSystem(calib, 96, 128, cfg, device="cpu",

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from dmvio_tpu_torch.ops import patch_sample as tps
+from dmvio_tpu_torch.utils.camera import PATTERN
 
 # The suite runs several workers on few cores: one intra-op thread per
 # worker keeps PyTorch's OpenMP pool from contending with XLA's.
@@ -27,11 +28,19 @@ torch.set_num_threads(1)
 ATOL = 1e-4
 
 
+KINDS = ["interior", "stretch", "edges", "nonfinite", "lane_nan", "corner",
+         "rotated"]
+
+
 def make_case(kind: str, seed: int = 0):
-    """img [T, H, W], u/v [T, N, K] (pattern index 4 is the centre)."""
+    """img [T, H, W], u/v [T, N, K] (pattern index 4 is the centre).
+
+    The pattern offsets go to u as drawn and to v reversed along K, except
+    for "rotated", which warps the real pattern."""
     rng = np.random.default_rng(seed)
     T, H, W, N, K = 2, 48, 80, 96, 8
     img = rng.uniform(0, 255, (T, H, W)).astype(np.float32)
+    off_v = None
     if kind == "interior":
         uc = rng.uniform(10, W - 10, (T, N))
         vc = rng.uniform(10, H - 10, (T, N))
@@ -52,10 +61,34 @@ def make_case(kind: str, seed: int = 0):
         vc = rng.choice(specials, (T, N))
         uc[:, :10] = rng.uniform(10, W - 10, (T, 10))
         off = rng.uniform(-3, 3, (T, N, K))
+    elif kind == "lane_nan":
+        # NaN in some non-centre lanes of pairs whose centre is finite.
+        uc = rng.uniform(10, W - 10, (T, N))
+        vc = rng.uniform(10, H - 10, (T, N))
+        off = rng.uniform(-3, 3, (T, N, K))
+        off[rng.random((T, N, K)) < 0.2] = np.nan
+    elif kind == "corner":
+        # Every non-centre lane far outside the patch: clipped to one of its
+        # corners, so a pair's stencils span the whole 16x16 patch.
+        uc = rng.uniform(10, W - 10, (T, N))
+        vc = rng.uniform(10, H - 10, (T, N))
+        off = rng.choice([-20.0, 20.0], (T, N, K)) \
+            + rng.uniform(-1, 1, (T, N, K))
+    elif kind == "rotated":
+        # The pattern rotated by 45 degrees and scaled by 1.5, as a warp
+        # under rotation and zoom gives, plus sub-pixel jitter.
+        uc = rng.uniform(10, W - 10, (T, N))
+        vc = rng.uniform(10, H - 10, (T, N))
+        a = np.pi / 4
+        rot = 1.5 * np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        d = PATTERN @ rot.T + rng.uniform(-0.3, 0.3, (T, N, K, 2))
+        off, off_v = d[..., 0], d[..., 1]
     else:
         raise ValueError(kind)
+    if off_v is None:
+        off_v = off[..., ::-1]
     u = (uc[..., None] + off).astype(np.float32)
-    v = (vc[..., None] + off[..., ::-1]).astype(np.float32)
+    v = (vc[..., None] + off_v).astype(np.float32)
     u[..., 4] = uc
     v[..., 4] = vc
     return img, u, v
@@ -71,8 +104,7 @@ def assert_same(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["interior", "stretch", "edges",
-                                  "nonfinite"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_cuda_kernel_matches_plain(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel K1 has no CPU form)")

@@ -9,7 +9,7 @@ import torch
 
 from dmvio_tpu.ops import patch_sample as jps
 from dmvio_tpu_torch.ops import patch_sample as tps
-from test_torch_kernels_cuda import assert_same, make_case
+from test_torch_kernels_cuda import KINDS, assert_same, make_case
 
 # The suite runs several workers on few cores: one intra-op thread per
 # worker keeps PyTorch's OpenMP pool from contending with XLA's.
@@ -27,8 +27,7 @@ def reference(img, u, v):
     return [np.stack([o[k] for o in outs]) for k in range(4)]
 
 
-@pytest.mark.parametrize("kind", ["interior", "stretch", "edges",
-                                  "nonfinite"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_plain_matches_reference(kind):
     img, u, v = make_case(kind)
     got = tps.sample_patch3(torch.as_tensor(img), torch.as_tensor(u),
@@ -39,6 +38,11 @@ def test_plain_matches_reference(kind):
         assert ref[3].all()
     if kind == "stretch":
         assert 0 < ref[3].sum() < ref[3].size
+    if kind == "lane_nan":
+        assert 0 < np.isnan(ref[0]).mean() < 0.5
+    if kind == "corner":
+        # Centre lanes only: every other lane was clipped.
+        assert ref[3].sum() == ref[3][..., 4].sum() > 0
 
 
 def test_anchor_saturation_matches_reference():
@@ -50,6 +54,15 @@ def test_anchor_saturation_matches_reference():
                          48, 80)
     np.testing.assert_array_equal(tx.numpy(), np.asarray(x0))
     np.testing.assert_array_equal(ty.numpy(), np.asarray(y0))
+
+
+def test_pattern_axis_must_be_the_pattern():
+    """The kernel serves a pair with one lane per pattern pixel, so K != 8
+    is refused, on the CPU as on the card."""
+    img, u, v = make_case("interior")
+    with pytest.raises(ValueError, match="pattern axis"):
+        tps.sample_patch3(torch.as_tensor(img), torch.as_tensor(u[..., :6]),
+                          torch.as_tensor(v[..., :6]))
 
 
 def test_strided_view_input():

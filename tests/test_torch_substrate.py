@@ -38,7 +38,7 @@ def close(a, b, **kw):
 def test_camera_levels_and_projection():
     rng = np.random.default_rng(0)
     jc = jcam.Calib.create(380.0, 372.5, 255.5, 251.0)
-    tc = tcam.Calib.create(380.0, 372.5, 255.5, 251.0)
+    tc = tcam.Calib.create(380.0, 372.5, 255.5, 251.0, device="cpu")
     for lvl in range(6):
         close(jc.at_level(lvl).as_vec(), tc.at_level(lvl).as_vec())
     close(jc.K(), tc.K())
@@ -119,9 +119,10 @@ def test_synthetic_render_and_depth():
     texture sums ~15 float32 sines of arguments up to ~100 rad)."""
     H, W = 48, 64
     jc = jcam.Calib.create(60.0, 60.0, W / 2 - 0.5, H / 2 - 0.5)
-    tc = tcam.Calib.create(60.0, 60.0, W / 2 - 0.5, H / 2 - 0.5)
+    tc = tcam.Calib.create(60.0, 60.0, W / 2 - 0.5, H / 2 - 0.5,
+                           device="cpu")
     js = jsyn.default_scene(2.0)
-    ts = tsyn.default_scene(2.0)
+    ts = tsyn.default_scene(2.0, device="cpu")
     for a, b in zip(js, ts):
         close(a, b)
     xi = np.array([0.05, -0.02, 0.03, 0.02, -0.04, 0.01], np.float32)
