@@ -3,8 +3,10 @@
 The system has no learned weights; what must carry across between
 implementations is its state: the calibration, the window's frames and
 points (`BAFrames`, `BAPoints`), the immature pool, the tracker reference
-(pyramid + per-level `PointCloud`s), the window's `pair_mask`, and the
-host-side prior (`HM`, `bM0` float64, `prior_diag`).
+(pyramid + per-level `PointCloud`s), the window's `pair_mask`, the
+host-side prior (`HM`, `bM0` float64, `prior_diag`), and the inertial
+state: `VIOStates`, `IMUPairs` with their `PreintState`s, the coarse
+filter's `CoarseIMUState` (host float64) and the IMU system's host prior.
 
 Every function takes objects whose fields are numpy arrays (or anything
 `np.asarray` accepts: NamedTuples, dataclasses, dicts) and matches fields
@@ -20,8 +22,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from dmvio_tpu_torch.models import coarse_tracker
-from dmvio_tpu_torch.ops import align, immature, residuals
+from dmvio_tpu_torch.models import coarse_tracker, vio_ba, vio_coarse
+from dmvio_tpu_torch.ops import align, immature, preint, residuals
 from dmvio_tpu_torch.utils.camera import Calib
 
 
@@ -88,3 +90,46 @@ def window_state(win: Any, device) -> dict:
         bM0=np.asarray(_field(win, "bM0"), np.float64),
         prior_diag=np.asarray(_field(win, "prior_diag"), np.float32),
     )
+
+
+def preint_state(src: Any, device) -> preint.PreintState:
+    return named(preint.PreintState, src, device)
+
+
+def vio_states(src: Any, device) -> vio_ba.VIOStates:
+    return named(vio_ba.VIOStates, src, device)
+
+
+def imu_pairs(src: Any, device) -> vio_ba.IMUPairs:
+    return vio_ba.IMUPairs(
+        pre=preint_state(_field(src, "pre"), device),
+        i=tensor(_field(src, "i"), device).long(),
+        j=tensor(_field(src, "j"), device).long(),
+        valid=tensor(_field(src, "valid"), device).to(torch.bool))
+
+
+def coarse_imu_state(src: Any) -> vio_coarse.CoarseIMUState:
+    """The coarse filter's belief, host float64 as in both
+    implementations."""
+    return vio_coarse.CoarseIMUState(
+        R_cw=np.asarray(_field(src, "R_cw"), np.float64),
+        t_cw=np.asarray(_field(src, "t_cw"), np.float64),
+        v=np.asarray(_field(src, "v"), np.float64),
+        bias=np.asarray(_field(src, "bias"), np.float64),
+        H=np.asarray(_field(src, "H"), np.float64),
+        s_log=float(np.asarray(_field(src, "s_log"))),
+        g2=np.asarray(_field(src, "g2"), np.float64))
+
+
+def imu_host_state(imu: Any) -> dict:
+    """The IMU system's host state: the extended prior (HM, bM0 float64;
+    prior_diag float32), s_log, g2, and the pairs as (older slot, newer
+    slot, host preint dict); a pair given as (i, j, device preint, host
+    dict) keeps its host dict."""
+    return dict(
+        HM=np.asarray(_field(imu, "HM"), np.float64),
+        bM0=np.asarray(_field(imu, "bM0"), np.float64),
+        prior_diag=np.asarray(_field(imu, "prior_diag"), np.float32),
+        s_log=float(_field(imu, "s_log")),
+        g2=np.asarray(_field(imu, "g2"), np.float64),
+        pairs=[(int(p[0]), int(p[1]), p[-1]) for p in _field(imu, "pairs")])

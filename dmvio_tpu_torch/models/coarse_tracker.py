@@ -1,7 +1,9 @@
 """Coarse-to-fine direct image alignment tracker.
 
 Counterpart of dmvio_tpu/models/coarse_tracker.py (trackNewestCoarse and
-makeCoarseDepthL0), visual branch. The reference vmaps the whole
+makeCoarseDepthL0), with its IMU prior: given a `CoarsePrior`, every
+level's LM is the joint visual + inertial 17-dof solve (trackNewestCoarse
++ computeCoarseUpdate). The reference vmaps the whole
 coarse-to-fine LM over the candidate ladder and runs each level as a
 `while_loop`; here the candidates are an explicit batch axis B and each
 level is a Python loop whose per-candidate updates are gated by
@@ -13,7 +15,7 @@ layout (coarse_tracker.py:345-351), so the host logic ports line for line.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,9 +29,24 @@ HUBER_TH = 9.0
 CUTOFF_TH = 20.0
 PRIOR_RHO = 50.0
 PRIOR_B = 0.05
-# Photometric noise weight of the packed Hessian (the reference's unit tie
-# to the inertial prior; kept so the packed layout is identical).
+# Photometric noise weight tying tracker units to the prior's Mahalanobis
+# units (see models/vio_ba.W_DSO).
 W_PHOTO = 1.0 / 64.0
+
+
+class CoarsePrior(NamedTuple):
+    """Gaussian prior fused into the per-level joint solve (the IMU side of
+    CoarseIMULogic::computeCoarseUpdate). Coordinates [17]: [xi(6) left-inc
+    on the TRACKED pose, aff(2), v(3), bias(6)]; `H` is information in the
+    VIO (Mahalanobis) units; the centres define the zero-delta point, the
+    pose centre relative to the tracking reference."""
+
+    H: torch.Tensor       # [17, 17]
+    R0: torch.Tensor      # [3, 3]
+    t0: torch.Tensor      # [3]
+    aff0: torch.Tensor    # [2]
+    v0: torch.Tensor      # [3]
+    b0: torch.Tensor      # [6]
 
 
 class TrackerRef(NamedTuple):
@@ -76,6 +93,8 @@ class _LMState(NamedTuple):
     t: torch.Tensor       # [B, 3]
     rho: torch.Tensor     # [B]
     b_aff: torch.Tensor   # [B]
+    v: torch.Tensor       # [B, 3]
+    bias: torch.Tensor    # [B, 6]
     lam: torch.Tensor
     energy: torch.Tensor  # mean energy at the current accepted state
     terms: torch.Tensor
@@ -89,19 +108,44 @@ def _sel(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0,
-                 max_it: int) -> _LMState:
-    """LM on one pyramid level for B candidates. One sampling pass per
-    iteration: a trial's GN system is kept for the next solve if accepted."""
+def _prior_delta(pr: CoarsePrior, R, t, rho, b_aff, v, bias):
+    """[B, 17] offsets of B tracker states from the prior's centre."""
+    Ri, ti = lie.se3_inv(pr.R0, pr.t0)
+    xi = lie.se3_log(*lie.se3_mul(R, t, Ri, ti))
+    return torch.cat([xi, torch.stack([rho, b_aff], dim=-1) - pr.aff0,
+                      v - pr.v0, bias - pr.b0], dim=-1)
+
+
+def _prior_quad(pr: CoarsePrior, d):
+    """(d^T H d, H d) of B prior offsets d [B, 17]."""
+    Hd = d @ pr.H.T
+    return torch.sum(d * Hd, dim=-1), Hd
+
+
+def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0, max_it: int,
+                 prior: Optional[CoarsePrior] = None, v0=None,
+                 bias0=None) -> _LMState:
+    """LM on one pyramid level for B candidates, optionally fused with a
+    17-dof Gaussian prior (v0 [B, 3], bias0 [B, 6] start the inertial
+    part). One sampling pass per iteration: a trial's GN system is kept for
+    the next solve if accepted."""
     dev = R0.device
     B = R0.shape[0]
 
-    def eval_state(R, t, rho, b, cmult):
+    def eval_state(R, t, rho, b, v, bias, cmult, terms_hint):
         H, bvec, stats = align.calc_res_and_gs(
             tgt_level, calib_l, pc, R, t, torch.exp(rho), b,
             HUBER_TH, CUTOFF_TH, cmult)
         n = stats.num_terms
-        return H, bvec, stats.energy / torch.clamp(n, min=1.0), n
+        em = stats.energy / torch.clamp(n, min=1.0)
+        if prior is not None:
+            # Prior energy in mean-photometric units (the joint system is
+            # solved in mean units).
+            d = _prior_delta(prior, R, t, rho, b, v, bias)
+            hint = n if terms_hint is None else terms_hint
+            em = em + _prior_quad(prior, d)[0] \
+                / (W_PHOTO * torch.clamp(hint, min=1.0))
+        return H, bvec, em, n
 
     # Cutoff escalation (levelCutoffRepeat), all ratios from one pass.
     ratios = align.calc_sat_profile(tgt_level, calib_l, pc, R0, t0,
@@ -111,8 +155,13 @@ def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0,
                         torch.where(ratios[:, 1] <= 0.6, 2.0 * one,
                                     torch.where(ratios[:, 2] <= 0.6,
                                                 4.0 * one, 8.0 * one)))
-    H0, b0_vec, e0, n0 = eval_state(R0, t0, rho0, b0, cmult)
-    st = _LMState(R=R0, t=t0, rho=rho0, b_aff=b0,
+    if v0 is None:
+        v0 = torch.zeros(B, 3, device=dev)
+    if bias0 is None:
+        bias0 = torch.zeros(B, 6, device=dev)
+    H0, b0_vec, e0, n0 = eval_state(R0, t0, rho0, b0, v0, bias0, cmult,
+                                    None)
+    st = _LMState(R=R0, t=t0, rho=rho0, b_aff=b0, v=v0, bias=bias0,
                   lam=torch.full((B,), 0.01, device=dev), energy=e0,
                   terms=n0, H=H0, b=b0_vec,
                   it=torch.zeros(B, dtype=torch.int32, device=dev),
@@ -128,15 +177,41 @@ def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0,
         zeros6 = torch.zeros(B, 6, device=dev)
         bs = st.b / nrm + reg * torch.cat(
             [zeros6, st.rho[:, None], st.b_aff[:, None]], dim=1)
-        Hl = Hs + st.lam[:, None, None] * torch.diag_embed(
-            torch.diagonal(Hs, dim1=-2, dim2=-1)) + 1e-8 * eye8
-        step8 = torch.linalg.solve_ex(Hl, -bs)[0]
-        step8 = torch.where(torch.isfinite(step8), step8,
-                            torch.zeros_like(step8))
+        if prior is None:
+            Hl = Hs + st.lam[:, None, None] * torch.diag_embed(
+                torch.diagonal(Hs, dim1=-2, dim2=-1)) + 1e-8 * eye8
+            step8 = torch.linalg.solve_ex(Hl, -bs)[0]
+            step8 = torch.where(torch.isfinite(step8), step8,
+                                torch.zeros_like(step8))
+            vn, biasn = st.v, st.bias
+        else:
+            # Joint 17-dof solve in mean-photometric units: the prior H is
+            # divided by (W_PHOTO * terms) to match.
+            scale = 1.0 / (W_PHOTO * nrm)
+            d = _prior_delta(prior, st.R, st.t, st.rho, st.b_aff, st.v,
+                             st.bias)
+            H17 = torch.zeros(B, 17, 17, device=dev)
+            H17[:, :8, :8] = Hs
+            b17 = torch.zeros(B, 17, device=dev)
+            b17[:, :8] = bs
+            H17 = H17 + prior.H * scale[..., None]
+            b17 = b17 + _prior_quad(prior, d)[1] * scale
+            Hl = H17 + st.lam[:, None, None] * torch.diag_embed(
+                torch.diagonal(H17, dim1=-2, dim2=-1)) \
+                + 1e-8 * torch.eye(17, device=dev)
+            step = torch.linalg.solve_ex(Hl, -b17)[0]
+            step = torch.where(torch.isfinite(step), step,
+                               torch.zeros_like(step))
+            step8 = step[:, :8]
+            vn = st.v + step[:, 8:11]
+            biasn = st.bias + step[:, 11:17]
         Rn, tn = lie.se3_retract(st.R, st.t, step8[:, :6])
+        # Hard bounds on the brightness pair: under a conflicting prior the
+        # affine DOFs are the escape valve and can run away to overflow.
         rhon = torch.clamp(st.rho + step8[:, 6], -2.0, 2.0)
         bn = torch.clamp(st.b_aff + step8[:, 7], -80.0, 80.0)
-        Hn, bn_vec, en, nn = eval_state(Rn, tn, rhon, bn, cmult)
+        Hn, bn_vec, en, nn = eval_state(Rn, tn, rhon, bn, vn, biasn, cmult,
+                                        st.terms)
         accept = (en < st.energy) & torch.isfinite(en)
         small = torch.sum(step8 * step8, dim=1) < 1e-6
         flat = accept & (torch.abs(en - st.energy)
@@ -144,6 +219,7 @@ def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0,
         new = _LMState(
             R=_sel(accept, Rn, st.R), t=_sel(accept, tn, st.t),
             rho=_sel(accept, rhon, st.rho), b_aff=_sel(accept, bn, st.b_aff),
+            v=_sel(accept, vn, st.v), bias=_sel(accept, biasn, st.bias),
             lam=torch.where(accept, torch.clamp(st.lam * 0.25, min=1e-6),
                             st.lam * 4.0),
             energy=_sel(accept, en, st.energy),
@@ -155,26 +231,34 @@ def _track_level(tgt_level, calib_l, pc, R0, t0, rho0, b0,
 
 
 def track_batch(ref: TrackerRef, new_pyr, calib0: Calib, R_init, t_init,
-                rho_init, b_init, levels: int = PYR_LEVELS):
+                rho_init, b_init, levels: int = PYR_LEVELS,
+                prior: Optional[CoarsePrior] = None, v_init=None,
+                bias_init=None):
     """Coarse-to-fine track of B initializations: (TrackResult with a
-    leading B axis, packed [B, 25 + 2L + 1 + 64])."""
+    leading B axis, packed [B, 25 + 2L + 1 + 64]). With `prior`, each
+    level's LM is the joint 17-dof solve, started from v_init [3] and
+    bias_init [6] (zeros when None)."""
     B = R_init.shape[0]
     dev = R_init.device
     R, t = R_init, t_init
     rho = rho_init.expand(B).clone()
     b_aff = b_init.expand(B).clone()
+    v = torch.zeros(B, 3, device=dev) if v_init is None \
+        else v_init.expand(B, 3).clone()
+    bias = torch.zeros(B, 6, device=dev) if bias_init is None \
+        else bias_init.expand(B, 6).clone()
     level_energy, level_terms = [], []
     for lvl in range(levels - 1, -1, -1):
         st = _track_level(new_pyr[lvl], calib0.at_level(lvl),
                           ref.clouds[lvl], R, t, rho, b_aff,
-                          MAX_ITERS[min(lvl, len(MAX_ITERS) - 1)])
+                          MAX_ITERS[min(lvl, len(MAX_ITERS) - 1)],
+                          prior=prior, v0=v, bias0=bias)
         R, t, rho, b_aff = st.R, st.t, st.rho, st.b_aff
+        v, bias = st.v, st.bias
         level_energy.append(st.energy)
         level_terms.append(st.terms)
     level_energy = torch.stack(level_energy[::-1], dim=1)   # [B, L], 0 = fine
     level_terms = torch.stack(level_terms[::-1], dim=1)
-    v = torch.zeros(B, 3, device=dev)
-    bias = torch.zeros(B, 6, device=dev)
 
     H_fin, _, stats = align.calc_res_and_gs(
         new_pyr[0], calib0, ref.clouds[0], R, t, torch.exp(rho), b_aff,
@@ -202,22 +286,27 @@ def track_batch(ref: TrackerRef, new_pyr, calib0: Calib, R_init, t_init,
 
 
 def track(ref: TrackerRef, new_pyr, calib0: Calib, R_init, t_init,
-          rho_init, b_init, levels: int = PYR_LEVELS):
+          rho_init, b_init, levels: int = PYR_LEVELS,
+          prior: Optional[CoarsePrior] = None, v_init=None, bias_init=None):
     """Track one initialization: (TrackResult, packed [25 + 2L + 65])."""
     res, packed = track_batch(ref, new_pyr, calib0, R_init[None],
-                              t_init[None], rho_init, b_init, levels)
+                              t_init[None], rho_init, b_init, levels,
+                              prior, v_init, bias_init)
     return TrackResult(*(x[0] for x in res)), packed[0]
 
 
 def track_multi(ref: TrackerRef, new_pyr, calib0: Calib, R_cands, t_cands,
                 cand_mask, rho_init, b_init, energy_gate,
-                levels: int = PYR_LEVELS):
+                levels: int = PYR_LEVELS,
+                prior: Optional[CoarsePrior] = None, v_init=None,
+                bias_init=None):
     """Track every candidate initialization and pick the winner on the
     device: the first candidate beating `energy_gate`, else the best valid
     one by finest-level energy. Returns (TrackResult of the winner,
     packed [D + 2]) with (winner index, any-valid flag) appended."""
     res, packed = track_batch(ref, new_pyr, calib0, R_cands, t_cands,
-                              rho_init, b_init, levels)
+                              rho_init, b_init, levels, prior, v_init,
+                              bias_init)
     L = levels
     e0 = packed[:, 25]
     validc = (packed[:, 25 + 2 * L] > 0.5) & cand_mask

@@ -1,20 +1,27 @@
-"""Visual odometry pipeline orchestrator (serial visual path).
+"""Visual(-inertial) odometry pipeline orchestrator (serial path).
 
-Counterpart of dmvio_tpu/models/full_system.py, non-realtime visual
-branch (FullSystem::addActiveFrame / trackNewCoarse / makeKeyFrame /
+Counterpart of dmvio_tpu/models/full_system.py, non-realtime branch
+(FullSystem::addActiveFrame / trackNewCoarse / makeKeyFrame /
 initializeFromInitializer / activatePointsMT / traceNewCoarse /
-flagFramesForMarginalization). Each frame is processed to completion:
+flagFramesForMarginalization, and the IMUIntegration seams). Each frame is
+processed to completion:
 
   per frame:     pyramid -> initializer (until initialized) -> coarse
-                 tracking of the 4-candidate ladder (32-candidate rescue
-                 batch when all fail) -> epipolar trace of the pool;
+                 tracking of the 4-candidate ladder (with an IMU: the
+                 coarse filter's prediction in the pad slot and its 17-dof
+                 prior in the joint solve; 32-candidate rescue batch when
+                 all fail) -> epipolar trace of the pool -> IMU init window
+                 or coarse-filter fusion;
   per keyframe:  insert -> activate points (kernel K1) -> windowed BA
-                 (kernel K1 in every linearization) -> fused marginalization
-                 tail (K1 again) + host float64 prior algebra -> tracker
-                 reference -> spawn new immature points.
+                 (visual, or joint visual-inertial once the IMU is ACTIVE;
+                 kernel K1 in every linearization) -> fused marginalization
+                 tail (K1 again) + host float64 prior algebra and the
+                 delayed log -> tracker reference -> spawn new immature
+                 points -> coarse IMU init / PGBA cycle.
 
-The port serves this path only: realtime mode, the inertial stack and
-multi-device BA raise NotImplementedError.
+Realtime mode, multi-device BA and the observer chain (output wrappers)
+are not ported: realtime=True and mesh_devices > 1 raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,8 +32,8 @@ import numpy as np
 import torch
 
 from dmvio_tpu_torch import device as resolve_device
-from dmvio_tpu_torch.models import ba, coarse_tracker, initializer
-from dmvio_tpu_torch.models import window, window_ops
+from dmvio_tpu_torch.models import ba, coarse_tracker, delayed, imu_system
+from dmvio_tpu_torch.models import initializer, vio_ba, window, window_ops
 from dmvio_tpu_torch.ops import ba_solve, immature, pyramid
 from dmvio_tpu_torch.utils import lie
 from dmvio_tpu_torch.utils.camera import Calib
@@ -38,10 +45,13 @@ def _np(x) -> np.ndarray:
 
 
 class FullSystem:
-    """Monocular visual odometry (serial).
+    """Monocular visual(-inertial) odometry (serial).
 
-    device=None means "cuda" and raises when CUDA is absent; pass
-    device="cpu" to run on the CPU. `calib` is moved to that device."""
+    Pass `imu_calib` (imu_system.IMUCalib) to enable the inertial stack:
+    IMU-aided coarse tracking, coarse IMU init, joint visual-inertial BA,
+    delayed marginalization and PGBA. device=None means "cuda" and raises
+    when CUDA is absent; pass device="cpu" to run on the CPU. `calib` is
+    moved to that device."""
 
     def __init__(self, calib: Calib, h: int, w: int,
                  cfg: Optional[window.Config] = None, device=None,
@@ -52,10 +62,6 @@ class FullSystem:
             raise NotImplementedError(
                 "dmvio_tpu_torch serves the serial path; realtime=True is "
                 "not ported yet")
-        if imu_calib is not None:
-            raise NotImplementedError(
-                "dmvio_tpu_torch serves the visual path; the inertial stack "
-                "is not ported yet")
         if self.cfg.mesh_devices and self.cfg.mesh_devices > 1:
             raise NotImplementedError(
                 "dmvio_tpu_torch runs on one device; mesh_devices > 1 is not "
@@ -64,6 +70,9 @@ class FullSystem:
         while self.cfg.levels > 1 and \
                 (min(h, w) >> (self.cfg.levels - 1)) < 12:
             self.cfg.levels -= 1
+        self.imu = (imu_system.IMUSystem(imu_calib, self.cfg.f_max,
+                                          self.device)
+                    if imu_calib is not None else None)
         calib = calib.to(self.device)
         self.calib = calib
         self.h, self.w = h, w
@@ -98,6 +107,7 @@ class FullSystem:
         self._last_exposure = None
         self._frame_th_dev = None
         self._frame_th_np = None
+        self._kf_st_host = None   # VIO tail's fetched states (host)
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -106,9 +116,9 @@ class FullSystem:
     def add_frame(self, img, timestamp: float, imu_data=None,
                   exposure: float = 1.0) -> None:
         """Feed one photometrically corrected [H, W] image (a tensor or a
-        numpy array; moved to the system's device)."""
-        if imu_data is not None:
-            raise NotImplementedError("IMU data given to the visual path")
+        numpy array; moved to the system's device). imu_data: optional
+        (acc [N, 3], gyr [N, 3], dts [N]) measurements since the previous
+        frame; ignored without an IMU."""
         img = self._t(img)
         fid = self.frame_id
         self.frame_id += 1
@@ -119,6 +129,8 @@ class FullSystem:
             if not self.initialized:
                 self.init.shift_rho(dlog)
         self._last_exposure = e_exp
+        if self.imu is not None and imu_data is not None:
+            self.imu.add_frame_imu(*imu_data)
         with TimeMeasurement("pyramid"):
             pyr = tuple(pyramid.build_pyramid(img, levels=self.cfg.levels))
 
@@ -160,6 +172,17 @@ class FullSystem:
             self.ref_kf_slot)
         with TimeMeasurement("trace"):
             self._trace_pool(R_cw, t_cw, aff_new, pyr)
+        if self.imu is not None:
+            R_cw_np = pk.R @ self.ref_pose_np[0]
+            t_cw_np = pk.R @ self.ref_pose_np[1] + pk.t
+            if self.imu.phase == imu_system.ACTIVE:
+                # Fold the visual evidence into the coarse belief and move
+                # its centre to the tracked state (addVisualToCoarseGraph).
+                self.imu.fuse_tracked(pk.H_vis, R_cw_np, t_cw_np, pk.v,
+                                      pk.bias)
+            else:
+                self.imu.record_init_pose(fid, self.ref_kf_id, pk.R, pk.t,
+                                          R_cw_np)
         if need_kf and not self.is_lost:
             # Never build a keyframe from an untracked pose.
             with TimeMeasurement("keyframe_total"):
@@ -211,13 +234,15 @@ class FullSystem:
             mask_c[k] = True
         return R_c, t_c, mask_c
 
-    def _track_multi(self, pyr, R_c, t_c, mask_c):
+    def _track_multi(self, pyr, R_c, t_c, mask_c, prior=None, v_init=None,
+                     bias_init=None):
         gate = (self.cfg.track_gate_scale * self.track_energy_ref
                 + self.cfg.track_gate_offset)
         res, packed = coarse_tracker.track_multi(
             self.tracker_ref, pyr, self.calib, self._t(R_c), self._t(t_c),
             self._t(mask_c, torch.bool), self._t(self.last_rho),
-            self._t(self.last_b), self._t(gate), levels=self.cfg.levels)
+            self._t(self.last_b), self._t(gate), levels=self.cfg.levels,
+            prior=prior, v_init=v_init, bias_init=bias_init)
         # ONE small fetch carries every stat the host needs.
         return res, coarse_tracker.PackedTrack(_np(packed), self.cfg.levels)
 
@@ -226,8 +251,11 @@ class FullSystem:
         return self._track_multi(pyr, *self._rescue_candidates())
 
     def _track_frame(self, pyr):
-        """Coarse tracking of the candidate ladder [unused pad, constant
-        velocity, zero motion, identity] with on-device selection."""
+        """Coarse tracking of the candidate ladder [IMU prediction or
+        unused pad, constant velocity, zero motion, identity] with
+        on-device selection; with an ACTIVE IMU every candidate runs the
+        joint solve under the coarse filter's prior, and a failed prior
+        solve falls back to visual-only tracking."""
         mR, mt = self.motion
         lR, lt = self.T_last_ref
         R_c = np.zeros((4, 3, 3), np.float32)
@@ -240,11 +268,37 @@ class FullSystem:
         t_c[2] = lt
         R_c[3] = np.eye(3)
         mask_c[1:] = True
-        res, pk = self._track_multi(pyr, R_c, t_c, mask_c)
+        prior = v_init = bias_init = None
+        if self.imu is not None:
+            pred = self.imu.predict_coarse()
+            if pred is not None:
+                # The IMU prediction takes the pad slot of the [4] batch.
+                R_ref, t_ref = self.ref_pose_np
+                R_rel = pred.R_cw @ np.asarray(R_ref, np.float64).T
+                t_rel = pred.t_cw - R_rel @ np.asarray(t_ref, np.float64)
+                R_c[0] = R_rel.astype(np.float32)
+                t_c[0] = t_rel.astype(np.float32)
+                mask_c[0] = True
+                prior = self.imu.coarse_prior(R_ref, t_ref, self.last_rho,
+                                              self.last_b)
+                v_init = self._t(pred.v)
+                bias_init = self._t(pred.bias)
+        res, pk = self._track_multi(pyr, R_c, t_c, mask_c, prior, v_init,
+                                    bias_init)
+        if not pk.any_valid and prior is not None:
+            # The prior solve failed on every candidate: the coarse belief
+            # is likely inconsistent. Track visually and let the next BA
+            # re-seed the belief (FullSystem.cpp:440-445).
+            res2, pk2 = self._track_multi(pyr, R_c, t_c, mask_c)
+            if pk2.any_valid:
+                res, pk = res2, pk2
+                self.imu.coarse = None
         if not pk.any_valid:
             res3, pk3 = self._rescue_track(pyr)
             if pk3.any_valid:
                 res, pk = res3, pk3
+                if self.imu is not None:
+                    self.imu.coarse = None
         best = pk
         best_e = float(pk.level_energy[0])
         if not pk.any_valid:
@@ -311,6 +365,17 @@ class FullSystem:
                     frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
                     R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True)
                 break
+        if self.imu is not None:
+            # Back to coarse-init collection; the bias and the last scale
+            # estimate survive as the next init's warm start.
+            imu = self.imu
+            imu.phase = imu_system.COARSE_INIT
+            imu.states = None
+            imu.pairs = []
+            imu._pending_pairs = []
+            imu.coarse = None
+            imu.clear_init_window()
+            imu.kf_since_pgba = 0
 
     def _initialize(self, r: initializer.InitResult, pyr, ts, fid):
         cfg = self.cfg
@@ -349,19 +414,33 @@ class FullSystem:
         self._spawn_immatures(1, pyr)
         self.initialized = True
         self.stats_kf = 2
+        if self.imu is not None:
+            # The visual init rescaled the world: restart the IMU-init pose
+            # window from here.
+            self.imu.clear_init_window()
+            self.imu.phase = imu_system.COARSE_INIT
 
     # ------------------------------------------------------------------
     def _make_keyframe(self, pyr, ts, fid, R_cw, t_cw, aff_new):
         cfg = self.cfg
         w = self.win
         slot = w.free_frame_slot()
+        prev_slot = self.ref_kf_slot
         w.insert_frame(slot, fid, pyr, R_cw, t_cw, aff_new)
         w.set_frame_prior(slot, 0.0, cfg.aff_a_prior, cfg.aff_b_prior)
         self.shells[-1].is_kf = True
         self.stats_kf += 1
+        if self.imu is not None:
+            pred_v = (np.asarray(self.imu.coarse.v)
+                      if self.imu.coarse is not None else None)
+            prev_fid = (w.slot_frame_id[prev_slot] if prev_slot >= 0
+                        else None)
+            self.imu.on_new_keyframe(prev_slot, slot, pred_v,
+                                     fids=(prev_fid, fid))
         with TimeMeasurement("activate"):
             self._activate_points(slot)
-        snap = (w.frames, w.points, w.pair_mask, w.calib)
+        snap = (w.frames, w.points, w.pair_mask, w.calib,
+                self.imu.states if self.imu is not None else None)
         with TimeMeasurement("ba_optimize"):
             ba_res = self._run_ba(max_iters=cfg.ba_iters)
         if self.stats_kf <= 4 and \
@@ -370,13 +449,90 @@ class FullSystem:
             self._full_reset(pyr, ts, fid)
             return
         w.frames = window_ops.set_fej_current(w.frames, slot)
+        self._imu_set_fej(slot)
+        self._kf_st_host = None
         with TimeMeasurement("marg_tail"):
-            pose_pack_np = self._kf_fused_tail(slot, snap)
+            if self._vio_mode():
+                pose_pack_np = self._kf_fused_tail_vio(slot, snap)
+            else:
+                pose_pack_np = self._kf_fused_tail(slot, snap)
         pose_pack = self._record_kf_poses(pose_pack_np)
         with TimeMeasurement("tracker_ref"):
             self._set_tracker_ref(slot, fid, pose_pack)
         with TimeMeasurement("spawn_immatures"):
             self._spawn_immatures(slot, pyr)
+
+        if self.imu is not None:
+            if self.imu.phase == imu_system.COARSE_INIT:
+                # postBAInit seam: run the coarse IMU init; take over when
+                # the scale marginal is trustworthy.
+                if self.imu.try_initialize(self.kf_poses):
+                    self._imu_activate(slot)
+            if self.imu.phase == imu_system.ACTIVE:
+                adopted = self.imu.maybe_run_pgba(
+                    w.frames, w.slot_frame_id,
+                    active_event_fn=self._active_visual_event)
+                F = cfg.f_max
+                R_np = pose_pack[:9 * F].reshape(F, 3, 3)[slot]
+                t_np = pose_pack[9 * F:12 * F].reshape(F, 3)[slot]
+                self.imu.reinit_coarse_from_ba(
+                    R_np, t_np, slot,
+                    st_np=None if adopted else self._kf_st_host)
+                self._kf_st_host = None
+
+    def _imu_set_fej(self, slot: int) -> None:
+        if self.imu is None or self.imu.states is None:
+            return
+        st = self.imu.states
+
+        def put(a0, a):
+            a0 = a0.clone()
+            a0[slot] = a[slot]
+            return a0
+        self.imu.states = st._replace(v0=put(st.v0, st.v),
+                                      bg0=put(st.bg0, st.bg),
+                                      ba0=put(st.ba0, st.ba))
+
+    def _imu_activate(self, newest_slot: int) -> None:
+        """COARSE_INIT -> ACTIVE takeover (initFromIMUInit seam): build the
+        VIO states around the current window and convert the visual
+        marginalization prior into the extended units."""
+        w = self.win
+        imu = self.imu
+        imu.activate(w.slot_frame_id, imu.init_velocity_of)
+        Cv = ba_solve.cdim(self.cfg.f_max)
+        C = vio_ba.cdim_ext(self.cfg.f_max)
+        imu.HM = np.zeros((C, C), np.float64)
+        imu.HM[:Cv, :Cv] = w.HM * vio_ba.W_DSO
+        imu.bM0 = np.zeros((C,), np.float64)
+        imu.bM0[:Cv] = w.bM0 * vio_ba.W_DSO
+        # The activation prior seeds the delayed log so a marginalization
+        # replacement can re-derive the full main prior later.
+        imu.record_base_event(w.frames, w.slot_frame_id)
+        imu.reinit_coarse_from_ba(_np(w.frames.R_cw[newest_slot]),
+                                  _np(w.frames.t_cw[newest_slot]),
+                                  newest_slot)
+
+    def _vio_mode(self) -> bool:
+        return (self.imu is not None
+                and self.imu.phase == imu_system.ACTIVE
+                and self.imu.states is not None)
+
+    def _ext_prior_diag(self) -> torch.Tensor:
+        """Extended prior diagonal: the visual priors in Mahalanobis units
+        and the IMU-block priors."""
+        Cv = ba_solve.cdim(self.cfg.f_max)
+        return self._t(np.concatenate([
+            np.asarray(self.win.prior_diag) * vio_ba.W_DSO,
+            np.asarray(self.imu.prior_diag)[Cv:]]))
+
+    def _vio_problem(self) -> vio_ba.VIOProblem:
+        imu = self.imu
+        return vio_ba.VIOProblem(
+            base=self._problem(), states=imu.states,
+            pairs=imu.device_pairs(), HM=self._t(imu.HM),
+            bM0=self._t(imu.bM0), prior_diag=self._ext_prior_diag(),
+            R_cb=imu.R_cb, t_cb=imu.t_cb, imu_on=True)
 
     def _problem(self) -> ba.BAProblem:
         w = self.win
@@ -387,7 +543,13 @@ class FullSystem:
 
     def _run_ba(self, max_iters: int):
         w = self.win
-        result = ba.optimize(self._problem(), w.images, max_iters=max_iters)
+        if self._vio_mode():
+            result = vio_ba.optimize(self._vio_problem(), w.images,
+                                     max_iters=max_iters)
+            self.imu.states = result.states
+        else:
+            result = ba.optimize(self._problem(), w.images,
+                                 max_iters=max_iters)
         self._frame_th_dev = result.frame_th
         w.frames = result.frames
         w.points = result.points
@@ -452,7 +614,7 @@ class FullSystem:
         vlist, HM_np, bM_np, n_pre, n_post, pose_pack_np = fetched
         if self._n_active > 60 and \
                 float(n_pre) < max(40.0, 0.15 * self._n_active):
-            w.frames, w.points, w.pair_mask, w.calib = snap
+            w.frames, w.points, w.pair_mask, w.calib = snap[:4]
             self.calib = w.calib
             w.frames = window_ops.set_fej_current(w.frames, newest_slot)
             fetched, (pts_d, pm_d), self._frame_th_np = dispatch()
@@ -501,6 +663,166 @@ class FullSystem:
                 self.imm = self.imm._replace(mask=self.imm.mask & ~is_victim)
                 w.points, w.pair_mask = window_ops.post_ba_update(
                     w.points, w.pair_mask, torch.zeros_like(w.pair_mask))
+
+    # ------------------------------------------------------------------
+    def _kf_fused_tail_vio(self, newest_slot: int, snap) -> np.ndarray:
+        """Extended (visual-inertial) keyframe tail: vio_ba.vio_marg_fused
+        on the device, one host read, then the host float64 prior algebra
+        and the delayed-log events. Returns the pose pack. A diverged BA
+        (nearly every point dropped) is reverted once."""
+        w = self.win
+        imu = self.imu
+
+        def dispatch():
+            slots = w.slots_by_age()
+            age_rank = np.full(self.cfg.f_max, -1, np.int32)
+            for r_, s_ in enumerate(slots):
+                age_rank[s_] = r_
+            n_drop = max(0, len(slots) - self.cfg.max_frames) \
+                if len(slots) > 2 else 0
+            (vlist, HM, bM, foldH, foldb, pts, pm, n_pre,
+             n_post) = vio_ba.vio_marg_fused(
+                self._vio_problem(), w.images,
+                self._t(age_rank, torch.int32), n_drop, newest_slot)
+            st = imu.states
+            fej = (w.frames.R0_cw, w.frames.t0_cw, w.frames.aff0, st.v0,
+                   st.bg0, st.ba0, st.s_log0, st.g20)
+            with TimeMeasurement("kf_sync_stats"):
+                fetched = imu_system.to_host(
+                    (vlist, HM, bM, foldH, foldb, n_pre, n_post,
+                     window_ops.kf_pose_pack(w.frames), fej, st,
+                     self._frame_th_dev))
+            return fetched, pts, pm
+
+        fetched, pts_d, pm_d = dispatch()
+        if self._n_active > 60 and \
+                float(fetched[5]) < max(40.0, 0.15 * self._n_active):
+            w.frames, w.points, w.pair_mask, w.calib = snap[:4]
+            if snap[4] is not None:
+                imu.states = snap[4]
+            self.calib = w.calib
+            w.frames = window_ops.set_fej_current(w.frames, newest_slot)
+            fetched, pts_d, pm_d = dispatch()
+        (vlist, HM_np, bM_np, foldH, foldb, _, n_post, pose_pack_np,
+         fej_np, self._kf_st_host, self._frame_th_np) = fetched
+        self._n_active = float(n_post)
+        victims = [int(s) for s in vlist if s >= 0]
+        with TimeMeasurement("marginalize"):
+            w.points, w.pair_mask = pts_d, pm_d
+            HM_add = np.asarray(HM_np, np.float64)
+            bM_add = np.asarray(bM_np, np.float64)
+            imu.HM = imu.HM + HM_add
+            imu.bM0 = imu.bM0 + bM_add
+            if victims:
+                self._vio_marginalize_frames(victims, (HM_add, bM_add),
+                                             (foldH, foldb), fej_np)
+                for s_ in victims:
+                    w.pyramids[s_] = None
+                    w.slot_frame_id[s_] = None
+                vl = self._t(np.asarray(vlist), torch.int64)
+                is_victim = torch.any(
+                    self.imm.host.long()[None, :] == vl[:, None], dim=0)
+                self.imm = self.imm._replace(mask=self.imm.mask & ~is_victim)
+            w.points, w.pair_mask = window_ops.post_ba_update(
+                w.points, w.pair_mask, torch.zeros_like(w.pair_mask))
+        return pose_pack_np
+
+    def _vio_marginalize_frames(self, victims, event_quad, fold_np,
+                                fej_np) -> None:
+        """Extended-state frame marginalization: fold the victims' IMU pair
+        factors into the prior, log the delayed-marginalization events,
+        then Schur out 8 + 9 coordinates per victim (marginalizeBAFrame).
+        event_quad: the point-marginalization quadratic this event absorbs;
+        fold_np: the victims' pair-factor quadratic; fej_np: the fetched
+        FEJ snapshot (R0, t0, aff0, v0, bg0, ba0, s_log0, g20)."""
+        w = self.win
+        imu = self.imu
+        F = self.cfg.f_max
+        C_ext = vio_ba.cdim_ext(F)
+        # Snapshot what this event absorbs BEFORE any state is dropped.
+        ev_slots = w.slots_by_age()
+        ev_slot_fids = list(w.slot_frame_id)
+        H_ev = event_quad[0].copy()
+        b_ev = event_quad[1]
+        # Fold the victims' diagonal priors into the event quadratic too.
+        pr_vis0 = np.array(w.prior_diag)
+        pr_imu0 = np.array(imu.prior_diag)
+        for s_ in victims:
+            i0 = ba_solve.CPART + 8 * s_
+            j0 = vio_ba.imu_offset(F, s_)
+            H_ev[np.arange(i0, i0 + 8), np.arange(i0, i0 + 8)] += \
+                pr_vis0[i0:i0 + 8] * vio_ba.W_DSO
+            H_ev[np.arange(j0, j0 + 9), np.arange(j0, j0 + 9)] += \
+                pr_imu0[j0:j0 + 9]
+        # 1) IMU pair factors touching victims -> prior (FEJ + r0).
+        imu.HM = imu.HM + np.asarray(fold_np[0], np.float64)
+        imu.bM0 = imu.bM0 + np.asarray(fold_np[1], np.float64)
+        removed_pairs = imu.drop_pairs_touching(list(victims))
+        slot_fid_map = {sl: ev_slot_fids[sl] for sl in range(F)}
+        fej_snap = imu.build_kf_snapshot(fej_np[:6], ev_slot_fids)
+        st0 = (float(fej_np[6]), np.asarray(fej_np[7], np.float64))
+        with TimeMeasurement("vio_marg_events"):
+            for s_ in victims:
+                imu.record_marg_event(
+                    ev_slot_fids[s_], ev_slots, ev_slot_fids, H_ev, b_ev,
+                    removed_pairs, slot_fid_map, fej_snap, st0)
+                # Only the first event carries the quadratic content.
+                H_ev = np.zeros((C_ext, C_ext))
+                b_ev = np.zeros(C_ext)
+                removed_pairs = []
+        # 2) Per victim: diagonal priors into HM, Schur, free the slot.
+        for s in victims:
+            pr_vis = np.array(w.prior_diag)
+            pr_imu = np.array(imu.prior_diag)
+            i0 = ba_solve.CPART + 8 * s
+            j0 = vio_ba.imu_offset(F, s)
+            idx = np.concatenate([np.arange(i0, i0 + 8),
+                                  np.arange(j0, j0 + 9)])
+            imu.HM[idx, idx] += np.concatenate(
+                [pr_vis[i0:i0 + 8] * vio_ba.W_DSO, pr_imu[j0:j0 + 9]])
+            pr_vis[i0:i0 + 8] = 0.0
+            pr_imu[j0:j0 + 9] = 0.0
+            w.prior_diag = pr_vis
+            imu.prior_diag = pr_imu
+            mmask = np.zeros(C_ext, bool)
+            mmask[idx] = True
+            imu.HM, imu.bM0 = vio_ba.schur_out_np(imu.HM, imu.bM0, mmask)
+            w.frames, w.pair_mask = window_ops.drop_frame_slot(
+                w.frames, w.pair_mask, s)
+
+    def _active_visual_event(self):
+        """The active window's reduced visual system as a quadratic over
+        the current keyframes (getActiveDSOFactor): every active point's
+        idepth marginalized out of the photometric system at the FEJ
+        states. Returns (device refs, build) for maybe_run_pgba, which
+        fetches the refs with its own snapshot and calls build on them."""
+        w = self.win
+        F = self.cfg.f_max
+        imu = self.imu
+        H_add, b_add = ba.marginalization_update(self._problem(), w.images,
+                                                 w.points.mask)
+        H_ext = vio_ba.embed_vis(H_add * vio_ba.W_DSO, F)
+        b_ext = vio_ba.embed_vis(b_add * vio_ba.W_DSO, F)
+        slots = w.slots_by_age()
+        fids = [w.slot_frame_id[s_] for s_ in slots]
+        slot_fids = list(w.slot_frame_id)
+        st = imu.states
+        refs = (H_ext, b_ext, w.frames.R0_cw, w.frames.t0_cw,
+                w.frames.aff0, st.v0, st.bg0, st.ba0, st.s_log0, st.g20)
+
+        def build(pack):
+            (H_np, b_np, R0, t0, aff0, v0, bg0, ba0, s0, g20) = pack
+            H_ev, b_ev = imu.cext_to_event(
+                np.asarray(H_np, np.float64), np.asarray(b_np, np.float64),
+                slots)
+            fej = imu.build_kf_snapshot((R0, t0, aff0, v0, bg0, ba0),
+                                        slot_fids)
+            return delayed.MargEvent(
+                victim=-1, fids=fids, H=H_ev, b0=b_ev,
+                fej={f: fej[f] for f in fids if f in fej},
+                s_log0=float(s0), g20=np.asarray(g20, np.float64))
+
+        return refs, build
 
     # ------------------------------------------------------------------
     def _build_tracker_ref_dev(self, slot: int) -> None:
@@ -558,6 +880,24 @@ class FullSystem:
             self.win.calib, slot, h=self.h, w=self.w)
 
     # ------------------------------------------------------------------
+    def metric_trajectory(self):
+        """Body poses in the metric gravity-aligned world (resultScaled.txt
+        via TransformDSOToIMU::transformPose) as (timestamp, R_wb, p_wb);
+        None until the IMU is ACTIVE. Host math on the CPU."""
+        if not self._vio_mode():
+            return None
+        st = imu_system.to_host(self.imu.states)
+        dso = self.trajectory()
+        R_wc = torch.as_tensor(np.stack([p[1] for p in dso]))
+        t_wc = torch.as_tensor(np.stack([p[2] for p in dso]))
+        R_cw, t_cw = lie.se3_inv(R_wc, t_wc)
+        Rb, pb = vio_ba.dso_to_body(
+            R_cw, t_cw, torch.as_tensor(np.float32(st.s_log)),
+            torch.as_tensor(np.asarray(st.g2, np.float32)),
+            self.imu.R_cb.cpu(), self.imu.t_cb.cpu())
+        Rb, pb = Rb.numpy(), pb.numpy()
+        return [(dso[i][0], Rb[i], pb[i]) for i in range(len(dso))]
+
     def trajectory(self):
         """All frame poses as cam-to-world (timestamp, R_wc, t_wc)."""
         self.finish()

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import dmvio_tpu_torch
-from dmvio_tpu_torch.models import full_system, window
+from dmvio_tpu_torch.models import full_system, imu_system, window
 from dmvio_tpu_torch.ops import immature
 from dmvio_tpu_torch.utils import synthetic
 from dmvio_tpu_torch.utils.camera import Calib
@@ -90,8 +90,10 @@ def test_default_device_is_cuda_and_raises_without_it():
 @pytest.mark.parametrize("make", [
     lambda: Calib.create(100.0, 100.0, 63.5, 47.5),
     lambda: synthetic.default_scene(2.0),
+    lambda: synthetic.room_scene(2.0),
     lambda: immature.empty_pool(16),
-], ids=["Calib.create", "synthetic.default_scene", "immature.empty_pool"])
+], ids=["Calib.create", "synthetic.default_scene", "synthetic.room_scene",
+        "immature.empty_pool"])
 def test_constructors_default_to_cuda(make):
     """Without `device`, a constructor puts its tensors on the card, and
     raises where there is none, as FullSystem does."""
@@ -107,9 +109,11 @@ def test_constructors_default_to_cuda(make):
 @pytest.mark.parametrize("kwargs", [
     dict(cfg=dict(realtime=True)),
     dict(cfg=dict(mesh_devices=2)),
-    dict(imu_calib=object()),
+    dict(cfg=dict(realtime=True), imu_calib=imu_system.IMUCalib()),
 ])
 def test_unported_modes_refuse(kwargs):
+    """Realtime mode (visual or inertial) and multi-device BA are not
+    ported; the serial VIO path is (tests/test_torch_full_vio_*.py)."""
     calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
     cfg = window.Config(levels=3, **kwargs.get("cfg", {}))
     with pytest.raises(NotImplementedError):

@@ -1,17 +1,20 @@
-"""Where the time goes on the port's main path, on one CUDA device.
+"""Where the time goes on the port's main paths, on one CUDA device.
 
-Drives the same sequence as chip_smoke.py's main path (serial visual
-odometry, 512x512, Config(f_max=8, p_max=2048, ...)) once unprofiled, for
-the wall clock, and once with its last 10 frames (tracking and keyframes
-in steady state) under torch.profiler, for the device side. Prints one
-JSON line: card, wall-clock frames/s, device busy time of the last 10
-frames (the sum of kernel and copy times on the single stream), the
-device's idle share of those frames' unprofiled wall time, kernel
-launches, host syncs (aten::item / _local_scalar_dense and device-to-host
-copies), K1's share, and the ops that take the most device time. Device
-time by kernel goes to chiprun_out/profile_main_path.txt.
+Drives the same sequence as chip_smoke.py's VO phase (serial visual
+odometry, 512x512, Config(f_max=8, p_max=2048, ...)) or, with --vio, its
+VIO phase (bench.py's VIO sequence with the IMU, 60 frames) once
+unprofiled, for the wall clock, and once with its last 10 frames (tracking
+and keyframes in steady state; ACTIVE VIO for --vio) under torch.profiler,
+for the device side. Prints one JSON line: card, wall-clock frames/s,
+device busy time of the last 10 frames (the sum of kernel and copy times
+on the single stream), the device's idle share of those frames'
+unprofiled wall time, kernel launches, host syncs (aten::item /
+_local_scalar_dense and device-to-host copies), K1's share, and the ops
+that take the most device time. Device time by kernel goes to
+profile_main_path.txt (profile_vio_path.txt for --vio) in the output
+directory that main() names.
 
-    python3 tools/profile_main_path.py
+    python3 tools/profile_main_path.py [--vio]
 
 Imports nothing of JAX or of the JAX package; needs a CUDA device.
 """
@@ -29,16 +32,20 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from dmvio_tpu_torch.models import full_system, window  # noqa: E402
+from dmvio_tpu_torch.models import full_system, imu_system  # noqa: E402
+from dmvio_tpu_torch.models import window  # noqa: E402
 from dmvio_tpu_torch.utils import timing  # noqa: E402
 
 
-def run(calib, frames, n_tail: int = 0, profile: bool = False):
-    """Feed `frames` to a fresh FullSystem. Returns the system, the wall
-    time of the whole run and of its last `n_tail` frames, and the
-    profiler that recorded those last frames (if `profile`)."""
-    fs = full_system.FullSystem(calib, chip_smoke.H, chip_smoke.W,
-                                window.Config(**chip_smoke.CFG))
+def run(calib, frames, n_tail: int = 0, profile: bool = False,
+        chunks=None):
+    """Feed `frames` (with the IMU `chunks` per frame, if given) to a fresh
+    FullSystem. Returns the system, the wall time of the whole run and of
+    its last `n_tail` frames, and the profiler that recorded those last
+    frames (if `profile`)."""
+    fs = full_system.FullSystem(
+        calib, chip_smoke.H, chip_smoke.W, window.Config(**chip_smoke.CFG),
+        imu_calib=imu_system.IMUCalib() if chunks else None)
     torch.cuda.synchronize()
     timing.reset()
     start = len(frames) - n_tail
@@ -53,7 +60,8 @@ def run(calib, frames, n_tail: int = 0, profile: bool = False):
                     torch.profiler.ProfilerActivity.CUDA])
                 prof.__enter__()
             t_tail = time.perf_counter()
-        fs.add_frame(img, timestamp=i * 0.05)
+        fs.add_frame(img, timestamp=i * 0.05,
+                     imu_data=chunks[i] if chunks else None)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     if prof is not None:
@@ -67,15 +75,22 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     card = chip_smoke.card_line()
-    calib, frames, _ = chip_smoke.main_path_inputs(dev)
+    vio = "--vio" in sys.argv[1:]
+    chunks = None
+    if vio:
+        seq, chunks, _ = chip_smoke.vio_inputs(dev)
+        calib, frames = seq["calib"], seq["images"]
+    else:
+        calib, frames, _ = chip_smoke.main_path_inputs(dev)
     n_tail = 10          # steady state: tracking and 3-4 keyframes
-    run(calib, frames[:8])                               # warm-up: caches
-    fs, wall, wall_tail, _ = run(calib, frames, n_tail)
+    run(calib, frames[:8], chunks=chunks)                # warm-up: caches
+    fs, wall, wall_tail, _ = run(calib, frames, n_tail, chunks=chunks)
     stages = {k: v["median"] * 1e3 for k, v in timing.get_stats().items()}
     print(f"unprofiled: {len(frames)} frames in {wall:.3f} s, the last "
           f"{n_tail} in {wall_tail:.3f} s", flush=True)
     t0 = time.perf_counter()
-    _, _, wall_prof, prof = run(calib, frames, n_tail, profile=True)
+    _, _, wall_prof, prof = run(calib, frames, n_tail, profile=True,
+                                chunks=chunks)
     print(f"profiled the last {n_tail} frames ({wall_prof:.3f} s); run "
           f"took {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -102,12 +117,14 @@ def main() -> int:
            for k, us, c in rows[:12]]
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_main_path.txt"), "w") as f:
+    name = "profile_vio_path.txt" if vio else "profile_main_path.txt"
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(card + "\n")
         for k, us, c in rows:
             f.write(f"{us / 1e3:12.3f} ms {c:8d}  {k}\n")
     print(json.dumps({
-        "card": card, "frames": len(frames), "keyframes": fs.stats_kf,
+        "card": card, "path": "vio" if vio else "vo",
+        "frames": len(frames), "keyframes": fs.stats_kf,
         "wall_s": wall, "fps": len(frames) / wall,
         "stage_median_ms": stages,
         "tail_frames": n_tail, "tail_wall_s": wall_tail,

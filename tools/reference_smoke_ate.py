@@ -1,15 +1,29 @@
-"""Accuracy reference for chip_smoke.py's main path, from dmvio_tpu.
+"""Accuracy references for chip_smoke.py's phases, from dmvio_tpu.
 
 Runs the JAX reference (dmvio_tpu, XLA on the CPU, under the test suite's
-8-virtual-device setup) on the exact sequence that chip_smoke.py drives
-through the PyTorch port: 40 frames of `default_scene(depth=2.0)` at
-512x512 (fx = fy = 380) along bench.py's warm-up path, with
-Config(f_max=8, p_max=2048, i_max=2048, max_frames=7, levels=6,
-ba_iters=6). Prints one JSON line with the sim3 ATE, the path length and
-the run's health counters. chip_smoke.py's ATE gate is the larger of 3% of
-the path and 1.5x the ATE printed here (recorded in PERF.md).
+8-virtual-device setup) on the exact sequences that chip_smoke.py drives
+through the PyTorch port, and prints one JSON line per run.
+
+VO phase (default): 40 frames of `default_scene(depth=2.0)` at 512x512
+(fx = fy = 380) along bench.py's warm-up path, with Config(f_max=8,
+p_max=2048, i_max=2048, max_frames=7, levels=6, ba_iters=6). The line holds
+the sim3 ATE, the path length and the run's health counters. chip_smoke.py's
+VO gate is the larger of 3% of the path and 1.5x the ATE printed here.
+
+VIO phase (`--vio`): bench.py's VIO sequence (seed 2, s_dso 1.3, g2 (0.05,
+-0.03), accel_scale 0.5, rot_scale 0.3, default_scene(2.0), 20 Hz frames,
+200 Hz IMU) at 512x512 with the same Config and the IMU on, three runs:
+the clean sequence and the sequence with 1e-2 intensity noise from numpy
+seeds 1 and 2. Each run prints the frame at which the IMU became ACTIVE,
+the frame that completed the first PGBA cycle, and, at every frame count
+from `--from` on, the se3 and sim3 ATE of `metric_trajectory()` from
+first_kf + 5 on (as tests/test_full_vio.py scores it) with its path length.
+chip_smoke.py's VIO gates are the larger of the test suite's scale
+(sim3 0.04 dist + 0.01, se3 0.08 dist + 0.01) and 1.5x the worst of these
+runs at its frame count.
 
     python tools/reference_smoke_ate.py [n_frames]
+    python tools/reference_smoke_ate.py --vio [n_frames] [--from N]
 """
 
 import json
@@ -32,11 +46,17 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from dmvio_tpu.models import full_system, window  # noqa: E402
+from dmvio_tpu.models import full_system, imu_system, window  # noqa: E402
 from dmvio_tpu.utils import lie, synthetic, trajectory  # noqa: E402
 from dmvio_tpu.utils.camera import Calib  # noqa: E402
 
 H = W = 512
+CFG = dict(f_max=8, p_max=2048, i_max=2048, max_frames=7, levels=6,
+           ba_iters=6, realtime=False)
+# bench.py's VIO sequence (bench_vio), also chip_smoke.py's VIO phase.
+VIO_SEQ = dict(frame_dt=0.05, h=H, w=W, s_dso=1.3, g2=(0.05, -0.03),
+               accel_scale=0.5, rot_scale=0.3, seed=2)
+NOISE_SEEDS = (None, 1, 2)     # clean, then 1e-2 intensity noise
 
 
 def pose(i):
@@ -49,12 +69,10 @@ def pose(i):
             jnp.asarray(-R_cw @ center, jnp.float32))
 
 
-def main():
-    n = int(sys.argv[1]) if len(sys.argv) > 1 else 40
+def run_vo(n):
     calib = Calib.create(380.0, 380.0, W / 2 - 0.5, H / 2 - 0.5)
     scene = synthetic.default_scene(depth=2.0)
-    cfg = window.Config(f_max=8, p_max=2048, i_max=2048, max_frames=7,
-                        levels=6, ba_iters=6, realtime=False)
+    cfg = window.Config(**CFG)
     fs = full_system.FullSystem(calib, H, W, cfg)
     gt = []
     t0 = time.perf_counter()
@@ -75,6 +93,81 @@ def main():
         "lost_frames": fs.stats_lost_frames,
         "initialized": bool(fs.initialized), "is_lost": bool(fs.is_lost),
         "wall_s_cpu": wall}))
+
+
+def vio_ate(fs, seq, n):
+    """(se3, sim3, path) of metric_trajectory() over frames 0..n-1, from
+    first_kf + 5 on; None before the IMU is active."""
+    est = fs.metric_trajectory()
+    if est is None:
+        return None
+    gt = [(float(seq["timestamps"][i]), np.asarray(seq["R_body"][i]),
+           seq["p_gt"][i]) for i in range(n)]
+    first_kf = min(fs.kf_poses.keys())
+    keep = [k for k, sh in enumerate(fs.shells)
+            if sh.frame_id >= first_kf + 5]
+    est_t = [est[k] for k in keep]
+    gt_t = [gt[k] for k in keep]
+    if len(est_t) < 3:
+        return None
+    dist = float(np.sum(np.linalg.norm(np.diff(
+        np.stack([g[2] for g in gt_t]), axis=0), axis=1)))
+    return (trajectory.ate_rmse(est_t, gt_t, with_scale=False),
+            trajectory.ate_rmse(est_t, gt_t, with_scale=True), dist)
+
+
+def run_vio(n, n_from, noise_seed):
+    seq = synthetic.generate_vio_sequence(
+        n_frames=n, scene=synthetic.default_scene(depth=2.0), **VIO_SEQ)
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    fs = full_system.FullSystem(seq["calib"], H, W, window.Config(**CFG),
+                                imu_calib=imu_system.IMUCalib())
+    spf = seq["steps_per_frame"]
+    active_at = pgba_at = None
+    ates = {}
+    t0 = time.perf_counter()
+    for i in range(n):
+        chunk = None
+        if i > 0:
+            s0, s1 = (i - 1) * spf, i * spf
+            chunk = (seq["acc"][s0:s1], seq["gyr"][s0:s1],
+                     np.full(s1 - s0, seq["imu_dt"], np.float32))
+        img = seq["images"][i]
+        if rng is not None:
+            img = img + jnp.asarray(rng.normal(0, 1e-2, img.shape),
+                                    jnp.float32)
+        fs.add_frame(img, float(seq["timestamps"][i]), imu_data=chunk)
+        if active_at is None and fs.imu.phase == imu_system.ACTIVE:
+            active_at = i
+        if pgba_at is None and getattr(fs.imu, "pgba_count", 0) >= 1:
+            pgba_at = i
+        if i + 1 >= n_from:
+            a = vio_ate(fs, seq, i + 1)
+            if a is not None:
+                ates[i + 1] = {"se3": a[0], "sim3": a[1], "dist": a[2]}
+    print(json.dumps({
+        "frames": n, "noise_seed": noise_seed, "active_at": active_at,
+        "pgba_at": pgba_at, "pgba_count": getattr(fs.imu, "pgba_count", 0),
+        "keyframes": fs.stats_kf, "resets": fs.stats_resets,
+        "lost_frames": fs.stats_lost_frames,
+        "wall_s_cpu": time.perf_counter() - t0, "ate_by_frames": ates}),
+        flush=True)
+
+
+def main():
+    args = sys.argv[1:]
+    if args and args[0] == "--vio":
+        args = args[1:]
+        n_from = 0
+        if "--from" in args:
+            k = args.index("--from")
+            n_from = int(args[k + 1])
+            del args[k:k + 2]
+        n = int(args[0]) if args else 80
+        for seed in NOISE_SEEDS:
+            run_vio(n, n_from, seed)
+    else:
+        run_vo(int(args[0]) if args else 40)
 
 
 if __name__ == "__main__":
