@@ -23,7 +23,20 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
     marginalization, delayed log) and a PGBA cycle; check the metric
     trajectory (se3 and sim3 ATE gates) and the system's health, with K1's
     launches counted separately from the VO phase;
- 6. print the `kernels` JSON line, the card line, and last the result line.
+ 6. drive the realtime pipeline (Config realtime=True, the rt_* knobs and
+    async_fetch at their defaults) through add_frame and finish() on the
+    VO phase's sequence (rt-vo-512: deferred visual keyframes) and on 120
+    frames of the VIO phase's (rt-vio-512: deferred keyframes before and
+    after the IMU turns ACTIVE, the IMU preview prior), each with the
+    serial phase's health checks (at these knobs the reference itself
+    makes few keyframes, so neither fills the window nor reaches PGBA;
+    see RT_VO_MIN_KEYFRAMES, RT_VIO_FRAMES), an ATE gate from the JAX
+    reference's realtime run, K1's launches counted on its own, and the
+    pipeline's numbers: frames/s, stage medians, the fetch and decision
+    waits, the largest in-flight queue, host syncs per frame (PyTorch's
+    sync debug mode, over the last frames) and frame times while a PGBA
+    thread ran;
+ 7. print the `kernels` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -38,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -77,6 +91,25 @@ VIO_SEQ = dict(frame_dt=0.05, s_dso=1.3, g2=(0.05, -0.03), accel_scale=0.5,
                rot_scale=0.3, seed=2)
 REF_VIO_SE3 = 0.11746030252230089
 REF_VIO_SIM3 = 0.015815510671790052
+# Realtime phases: the same sequences through the realtime pipeline. Gates
+# from the JAX reference's realtime runs (async_fetch=False, flushed with
+# finish()) printed by `tools/reference_smoke_ate.py --rt 40` and
+# `--rt --vio 120` (worst of three runs for VIO), with the rules above.
+RT_CFG = dict(CFG, realtime=True)
+REF_RT_ATE_SIM3 = 0.06218563486963141
+# The dispatch-time keyframe score grows with the square root of the
+# baseline (ROADMAP.md queue 3), so on this sequence the reference's
+# realtime run makes 5 keyframes in 40 frames and never fills the window;
+# rt-vo-512 asks for two deferred keyframes besides the initializer's.
+RT_VO_MIN_KEYFRAMES = 4
+# The realtime VIO phase runs 120 frames of the same sequence: at the rt_*
+# defaults the reference's realtime run turns ACTIVE only at frame 56 and
+# makes 7 keyframes in 120 frames (`--rt --vio 120`); PGBA, which needs
+# several marginalizations more, lies beyond a smoke's length (PERF.md).
+RT_VIO_FRAMES = 120
+SYNC_WINDOW = 10
+REF_RT_VIO_SE3 = 0.0536047279579157
+REF_RT_VIO_SIM3 = 0.046614582321374526
 ATOL = 1e-4            # on 0-255 intensities: a few f32 ulps at 255
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
@@ -423,20 +456,40 @@ def phase_main_path(dev):
     return launches
 
 
-def vio_inputs(dev):
-    """bench.py's VIO sequence on `dev`: rendered frames, IMU chunks per
-    frame, ground-truth metric body poses."""
+def vio_inputs(dev, n_frames=None):
+    """bench.py's VIO sequence on `dev` (VIO_FRAMES frames by default):
+    rendered frames, IMU chunks per frame, ground-truth metric body
+    poses."""
+    n = VIO_FRAMES if n_frames is None else n_frames
     seq = synthetic.generate_vio_sequence(
-        n_frames=VIO_FRAMES, h=H, w=W,
-        scene=synthetic.default_scene(2.0, device=dev), **VIO_SEQ)
+        n_frames=n, h=H, w=W, scene=synthetic.default_scene(2.0, device=dev),
+        **VIO_SEQ)
     spf = seq["steps_per_frame"]
     chunks = [None] + [
         (seq["acc"][(i - 1) * spf:i * spf], seq["gyr"][(i - 1) * spf:i * spf],
          np.full(spf, seq["imu_dt"], np.float32))
-        for i in range(1, VIO_FRAMES)]
+        for i in range(1, n)]
     gt = [(float(seq["timestamps"][i]), np.asarray(seq["R_body"][i]),
-           seq["p_gt"][i]) for i in range(VIO_FRAMES)]
+           seq["p_gt"][i]) for i in range(n)]
     return seq, chunks, gt
+
+
+def vio_scores(fs, gt):
+    """(all poses finite, se3 ATE, sim3 ATE, path length) of the metric
+    trajectory from first_kf + 5 on, as tests/test_full_vio.py scores it."""
+    est = fs.metric_trajectory()
+    if est is None or len(est) != len(gt):
+        raise AssertionError("VIO: no metric trajectory for every frame")
+    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
+                 for p in est)
+    first_kf = min(fs.kf_poses.keys())
+    keep = [k for k, sh in enumerate(fs.shells)
+            if sh.frame_id >= first_kf + 5]
+    est_t = [est[k] for k in keep]
+    gt_t = [gt[k] for k in keep]
+    dist = trajectory.path_length(np.stack([g[2] for g in gt_t]))
+    return (finite, trajectory.ate_rmse(est_t, gt_t, with_scale=False),
+            trajectory.ate_rmse(est_t, gt_t, with_scale=True), dist)
 
 
 def phase_vio(dev):
@@ -460,19 +513,7 @@ def phase_vio(dev):
     wall = time.perf_counter() - t0
     launches = patch_sample.sample_patch3.launches
 
-    est = fs.metric_trajectory()
-    if est is None or len(est) != VIO_FRAMES:
-        raise AssertionError("VIO: no metric trajectory for every frame")
-    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
-                 for p in est)
-    first_kf = min(fs.kf_poses.keys())
-    keep = [k for k, sh in enumerate(fs.shells)
-            if sh.frame_id >= first_kf + 5]
-    est_t = [est[k] for k in keep]
-    gt_t = [gt[k] for k in keep]
-    dist = trajectory.path_length(np.stack([g[2] for g in gt_t]))
-    se3 = trajectory.ate_rmse(est_t, gt_t, with_scale=False)
-    sim3 = trajectory.ate_rmse(est_t, gt_t, with_scale=True)
+    finite, se3, sim3, dist = vio_scores(fs, gt)
     gate_se3 = max(0.08 * dist + 0.01, 1.5 * REF_VIO_SE3)
     gate_sim3 = max(0.04 * dist + 0.01, 1.5 * REF_VIO_SIM3)
     stats = timing.get_stats()
@@ -509,6 +550,191 @@ def phase_vio(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Realtime pipeline
+# ---------------------------------------------------------------------------
+
+
+class SyncCounter:
+    """Counts the host syncs PyTorch reports in its CUDA sync debug mode
+    ("warn": item() and bool() of a device tensor, blocking copies either
+    way, ...) while active. The fetcher's waits on its CUDA events are not
+    among them: those are the pipeline's intended sync points, timed as
+    track_fetch, kf_finalize_fetch and kf_decision_wait."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._records = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        return False
+
+    def take(self) -> int:
+        """Syncs since the last call."""
+        n = sum(1 for w in self._records if "synchroniz" in str(w.message))
+        del self._records[:]
+        return n
+
+
+def pgba_running(fs) -> bool:
+    bg = fs.imu._pgba_bg if fs.imu is not None else None
+    return bg is not None and bg["thread"].is_alive()
+
+
+def run_realtime(fs, frames, timestamps, chunks):
+    """Feed the frames through the realtime pipeline and flush it with
+    finish(); K1's launch count and the stage timers are set to 0 just
+    before. Host syncs are counted over the last SYNC_WINDOW frames and
+    the flush (counting slows the host, so the frames before the window
+    give an uncounted frames/s too). Returns K1's launches and the
+    pipeline's numbers."""
+    torch.cuda.synchronize()
+    timing.reset()
+    patch_sample.sample_patch3.launches = 0
+    frame_s, window_syncs, pgba_busy = [], [], []
+    depth = 0
+    init_at = active_at = pgba_at = None
+    w0 = len(frames) - SYNC_WINDOW
+    syncs = SyncCounter()
+    t0 = t_w0 = time.perf_counter()
+    try:
+        for i, img in enumerate(frames):
+            if i == w0:
+                t_w0 = time.perf_counter()
+                syncs.__enter__()
+            busy = pgba_running(fs)
+            t = time.perf_counter()
+            fs.add_frame(img, timestamps[i], imu_data=chunks[i])
+            frame_s.append(time.perf_counter() - t)
+            pgba_busy.append(busy or pgba_running(fs))
+            depth = max(depth, len(fs._rt_queue))
+            if i >= w0:
+                window_syncs.append(syncs.take())
+            if init_at is None and fs.initialized:
+                init_at = i
+            if fs.imu is not None:
+                if active_at is None and fs.imu.phase == imu_system.ACTIVE:
+                    active_at = i
+                if pgba_at is None and fs.imu.pgba_count >= 1:
+                    pgba_at = i
+        fs.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        finish_syncs = syncs.take()
+    finally:
+        syncs.__exit__(None, None, None)
+    launches = patch_sample.sample_patch3.launches
+    stats = timing.get_stats()
+    tracked = range(init_at + 1 if init_at is not None else len(frames),
+                    len(frames))
+
+    def mean_ms(idx):
+        idx = list(idx)
+        return 1e3 * statistics.fmean(frame_s[k] for k in idx) if idx \
+            else None
+    waits = {k: {"n": v["n"], "total_s": v["n"] * v["mean"],
+                 "median_ms": v["median"] * 1e3, "max_ms": v["max"] * 1e3}
+             for k, v in stats.items()
+             if k in ("track_fetch", "kf_finalize_fetch", "kf_decision_wait",
+                      "kf_stretch_block", "pgba_thread", "pgba_snapshot")}
+    return launches, {
+        "frames": len(frames), "wall_s": wall, "fps": len(frames) / wall,
+        "fps_before_sync_window": w0 / (t_w0 - t0),
+        "initialized_at_frame": init_at, "active_at_frame": active_at,
+        "first_pgba_at_frame": pgba_at,
+        "frame_ms_median": 1e3 * statistics.median(frame_s),
+        "stage_median_ms": {k: v["median"] * 1e3 for k, v in stats.items()},
+        "stage_calls_total_s": {k: [v["n"], v["n"] * v["mean"]]
+                                for k, v in stats.items()},
+        "waits": waits, "max_in_flight": depth,
+        "sync_window_frames": SYNC_WINDOW,
+        "host_syncs_per_frame": statistics.fmean(window_syncs),
+        "host_syncs_per_frame_max": max(window_syncs),
+        "host_syncs_finish": finish_syncs,
+        "frame_ms_mean_pgba_thread_running": mean_ms(
+            k for k in tracked if pgba_busy[k]),
+        "frame_ms_mean_pgba_thread_idle": mean_ms(
+            k for k in tracked if not pgba_busy[k]),
+        "k1_launches": launches,
+    }
+
+
+def phase_rt_vo(dev):
+    calib, frames, gt = main_path_inputs(dev)
+    cfg = window.Config(**RT_CFG)
+    fs = full_system.FullSystem(calib, H, W, cfg)           # device: cuda
+    launches, summary = run_realtime(
+        fs, frames, [i * 0.05 for i in range(N_FRAMES)],
+        [None] * N_FRAMES)
+    est = fs.trajectory()
+    if len(est) != N_FRAMES:
+        raise AssertionError(f"rt-vo: {len(est)} poses for {N_FRAMES} "
+                             "frames")
+    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
+                 for p in est)
+    ate = trajectory.ate_rmse(est, gt, with_scale=True)
+    path = trajectory.path_length(np.stack([g[2] for g in gt]))
+    gate = max(0.03 * path, 1.5 * REF_RT_ATE_SIM3)
+    summary.update(keyframes=fs.stats_kf, resets=fs.stats_resets,
+                   lost_frames=fs.stats_lost_frames, ate_sim3=ate,
+                   path_length=path, ate_gate=gate)
+    log("rt-vo-512: " + json.dumps(summary))
+    checks = [
+        (fs.initialized, "not initialized"),
+        (not fs.is_lost, "lost at the end"),
+        (fs.stats_resets == 0, f"{fs.stats_resets} resets"),
+        (fs.stats_kf >= RT_VO_MIN_KEYFRAMES,
+         f"only {fs.stats_kf} keyframes"),
+        (finite, "non-finite pose in the trajectory"),
+        (launches > 0, "K1 was never launched on the realtime VO path"),
+        (math.isfinite(ate) and ate < gate, f"ATE {ate} >= gate {gate}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError("rt-vo-512: " + msg)
+    return launches
+
+
+def phase_rt_vio(dev):
+    seq, chunks, gt = vio_inputs(dev, RT_VIO_FRAMES)
+    cfg = window.Config(**RT_CFG)
+    fs = full_system.FullSystem(seq["calib"], H, W, cfg,
+                                imu_calib=imu_system.IMUCalib())
+    launches, summary = run_realtime(
+        fs, seq["images"], [float(x) for x in seq["timestamps"]], chunks)
+    finite, se3, sim3, dist = vio_scores(fs, gt)
+    gate_se3 = max(0.08 * dist + 0.01, 1.5 * REF_RT_VIO_SE3)
+    gate_sim3 = max(0.04 * dist + 0.01, 1.5 * REF_RT_VIO_SIM3)
+    summary.update(
+        keyframes=fs.stats_kf, resets=fs.stats_resets,
+        lost_frames=fs.stats_lost_frames, imu_phase=fs.imu.phase,
+        pgba_count=fs.imu.pgba_count, pgba_adopted=fs.imu.pgba_adopt_count,
+        scale=float(np.exp(fs.imu.states.s_log.item())),
+        ate_se3=se3, ate_sim3=sim3, path_length=dist, gate_se3=gate_se3,
+        gate_sim3=gate_sim3)
+    log("rt-vio-512: " + json.dumps(summary))
+    checks = [
+        (fs.imu.phase == imu_system.ACTIVE, f"IMU phase {fs.imu.phase}"),
+        (fs.stats_resets == 0, f"{fs.stats_resets} resets"),
+        (fs.stats_lost_frames <= 2, f"{fs.stats_lost_frames} lost frames"),
+        (finite, "non-finite pose in the metric trajectory"),
+        (launches > 0, "K1 was never launched on the realtime VIO path"),
+        (math.isfinite(se3) and se3 < gate_se3,
+         f"se3 ATE {se3} >= gate {gate_se3}"),
+        (math.isfinite(sim3) and sim3 < gate_sim3,
+         f"sim3 ATE {sim3} >= gate {gate_sim3}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError("rt-vio-512: " + msg)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -529,9 +755,15 @@ def main() -> int:
     k1 = phase_kernels(dev)
     k1["launches_main_path"] = phase_main_path(dev)
     k1["launches_vio_path"] = phase_vio(dev)
+    k1["launches_rt_vo_path"] = phase_rt_vo(dev)
+    k1["launches_rt_vio_path"] = phase_rt_vio(dev)
     log(f"K1 launches: VO path {k1['launches_main_path']}, VIO path "
-        f"{k1['launches_vio_path']}")
-    k1["launches"] = k1["launches_main_path"] + k1["launches_vio_path"]
+        f"{k1['launches_vio_path']}, realtime VO path "
+        f"{k1['launches_rt_vo_path']}, realtime VIO path "
+        f"{k1['launches_rt_vio_path']}")
+    k1["launches"] = (k1["launches_main_path"] + k1["launches_vio_path"]
+                      + k1["launches_rt_vo_path"]
+                      + k1["launches_rt_vio_path"])
     print(json.dumps({"kernels": [k1]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

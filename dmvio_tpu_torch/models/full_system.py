@@ -1,10 +1,9 @@
-"""Visual(-inertial) odometry pipeline orchestrator (serial path).
+"""Visual(-inertial) odometry pipeline orchestrator.
 
-Counterpart of dmvio_tpu/models/full_system.py, non-realtime branch
-(FullSystem::addActiveFrame / trackNewCoarse / makeKeyFrame /
-initializeFromInitializer / activatePointsMT / traceNewCoarse /
-flagFramesForMarginalization, and the IMUIntegration seams). Each frame is
-processed to completion:
+Counterpart of dmvio_tpu/models/full_system.py (FullSystem::addActiveFrame
+/ trackNewCoarse / makeKeyFrame / initializeFromInitializer /
+activatePointsMT / traceNewCoarse / flagFramesForMarginalization, and the
+IMUIntegration seams). Serial mode processes each frame to completion:
 
   per frame:     pyramid -> initializer (until initialized) -> coarse
                  tracking of the 4-candidate ladder (with an IMU: the
@@ -19,9 +18,17 @@ processed to completion:
                  delayed log -> tracker reference -> spawn new immature
                  points -> coarse IMU init / PGBA cycle.
 
-Realtime mode, multi-device BA and the observer chain (output wrappers)
-are not ported: realtime=True and mesh_devices > 1 raise
-NotImplementedError.
+Realtime mode (Config.realtime, the reference's pipelined mode) dispatches
+each frame's tracking and trace at once and consumes its results when
+their host copy (utils/fetch.py) has landed, frames later; keyframes are
+decided at dispatch time and built from the deciding frame's own device
+tensors, and the keyframe's host half (prior algebra, delayed log, IMU
+init machine, PGBA, coarse-filter reseed) runs deferred, at the next
+finalize; PGBA runs on a background thread. The same K1 kernel runs in the
+keyframe's activation, BA and tail, visual and inertial.
+
+Not ported: multi-device BA (mesh_devices > 1 raises NotImplementedError)
+and the observer chain (output wrappers), which belongs to the IO slice.
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ import torch
 
 from dmvio_tpu_torch import device as resolve_device
 from dmvio_tpu_torch.models import ba, coarse_tracker, delayed, imu_system
-from dmvio_tpu_torch.models import initializer, vio_ba, window, window_ops
+from dmvio_tpu_torch.models import initializer, vio_ba, vio_coarse, window
+from dmvio_tpu_torch.models import window_ops
 from dmvio_tpu_torch.ops import ba_solve, immature, pyramid
-from dmvio_tpu_torch.utils import lie
+from dmvio_tpu_torch.utils import fetch, lie
 from dmvio_tpu_torch.utils.camera import Calib
 from dmvio_tpu_torch.utils.timing import TimeMeasurement
 
@@ -44,8 +52,20 @@ def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def _guard_kf_pose(anyv, R, t, aff, R_fb, t_fb, aff_fb):
+    """Select on the device between a solved pose and a fallback by the
+    packed any-valid flag, which the host has not seen at dispatch time.
+    It guards a dispatch-time keyframe's pose (fallback: the newest valid
+    pose) and carries that newest valid pose from frame to frame (the
+    reference's _guard_kf_pose and _carry_valid_pose, the same selection):
+    a diverged solve must never seed the window."""
+    ok = anyv > 0.5
+    return (torch.where(ok, R, R_fb), torch.where(ok, t, t_fb),
+            torch.where(ok, aff, aff_fb))
+
+
 class FullSystem:
-    """Monocular visual(-inertial) odometry (serial).
+    """Monocular visual(-inertial) odometry.
 
     Pass `imu_calib` (imu_system.IMUCalib) to enable the inertial stack:
     IMU-aided coarse tracking, coarse IMU init, joint visual-inertial BA,
@@ -58,10 +78,6 @@ class FullSystem:
                  imu_calib=None):
         self.device = resolve_device(device)
         self.cfg = cfg or window.Config()
-        if self.cfg.realtime:
-            raise NotImplementedError(
-                "dmvio_tpu_torch serves the serial path; realtime=True is "
-                "not ported yet")
         if self.cfg.mesh_devices and self.cfg.mesh_devices > 1:
             raise NotImplementedError(
                 "dmvio_tpu_torch runs on one device; mesh_devices > 1 is not "
@@ -73,6 +89,11 @@ class FullSystem:
         self.imu = (imu_system.IMUSystem(imu_calib, self.cfg.f_max,
                                           self.device)
                     if imu_calib is not None else None)
+        if self.imu is not None:
+            # Realtime mode runs PGBA on a background thread (the
+            # reference's RealtimePGBAState); serial mode stays
+            # deterministic.
+            self.imu.pgba_background = bool(self.cfg.realtime)
         calib = calib.to(self.device)
         self.calib = calib
         self.h, self.w = h, w
@@ -108,6 +129,23 @@ class FullSystem:
         self._frame_th_dev = None
         self._frame_th_np = None
         self._kf_st_host = None   # VIO tail's fetched states (host)
+        # Realtime pipeline state.
+        self._rt_queue = []       # in-flight frames, oldest first
+        self._kf_finalize = None  # deferred keyframe host half
+        self._fetcher = fetch.AsyncFetcher(enabled=self.cfg.async_fetch)
+        self._last_pose_dev = None   # device pose history for candidates
+        self._prev_pose_dev = None
+        self._valid_pose_dev = None  # newest valid pose (keyframe guard)
+        self._rt_chunks_since_kf = None  # replay buffer (deferred VIO KF)
+        # Dispatch-time keyframe decisions: the newest landed score of the
+        # current reference epoch (fid, score) and an EMA of its growth
+        # per frame, which persists across epochs.
+        self._kf_score_meas = None
+        self._kf_score_rate = 0.0
+        self._kf_epoch_fid = -1
+        # Frame id the coarse IMU belief sits at; a dispatch-time keyframe
+        # can move it ahead of the consume position.
+        self._belief_fid = -1
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -130,7 +168,7 @@ class FullSystem:
                 self.init.shift_rho(dlog)
         self._last_exposure = e_exp
         if self.imu is not None and imu_data is not None:
-            self.imu.add_frame_imu(*imu_data)
+            self.imu.add_frame_imu(*imu_data, fid=fid)
         with TimeMeasurement("pyramid"):
             pyr = tuple(pyramid.build_pyramid(img, levels=self.cfg.levels))
 
@@ -160,6 +198,10 @@ class FullSystem:
                 self.shells[-1] = window.FrameShell(
                     frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
                     R_c_ref=np.eye(3), t_c_ref=np.zeros(3), is_kf=True)
+            return
+
+        if self.cfg.realtime:
+            self._rt_frame(pyr, timestamp, fid)
             return
 
         with TimeMeasurement("coarse_tracking"):
@@ -195,8 +237,408 @@ class FullSystem:
         if map_dead or self._consec_lost > 8:
             self._full_reset(pyr, timestamp, fid)
 
+    # ------------------------------------------------------------------
+    # Realtime (pipelined) mode: the reference's two-thread track/map
+    # pipeline (FullSystem.cpp:1124-1320) as a software pipeline. Each
+    # frame's tracking and trace are dispatched at once and its packed
+    # stats are copied to the host asynchronously; the frame is consumed
+    # (host bookkeeping, IMU filter, lost/reset logic) when the copy has
+    # landed. Keyframes are decided at dispatch time; their device half
+    # runs then, their host half at the next finalize.
+    def _rt_frame(self, pyr, ts, fid) -> None:
+        # Inertial dispatch-time state: the frame's own chunk and a preview
+        # belief propagated through every chunk the belief has not seen.
+        imu_chunk = prior = v_init = bias_init = pred_pose = preview = None
+        if self.imu is not None:
+            imu_chunk = self.imu.frame_chunk()
+            # Only chunks ahead of the belief: after a dispatch-time
+            # keyframe finalize it can sit past older unconsumed frames.
+            pending = [q["imu_chunk"]["pre_np"] if q["imu_chunk"] else None
+                       for q in self._rt_queue if q["fid"] > self._belief_fid]
+            pending.append(imu_chunk["pre_np"] if imu_chunk else None)
+            # Past ~0.6 s of IMU-only propagation the dead-reckoned prior
+            # is worse than none: track visually until the belief catches
+            # up (the reference's preview horizon cap).
+            preview = (self.imu.predict_preview(pending)
+                       if len(pending) <= 12 else None)
+            if preview is not None and self._kf_finalize is not None \
+                    and self._kf_finalize.get("ref_pose_approx") is None:
+                # A deferred keyframe with no host-side reference pose: the
+                # prior cannot be phrased against the new reference.
+                preview = None
+            if preview is not None:
+                # While the deferred keyframe's optimized pose is in
+                # flight, its tracked (or IMU-predicted) pose stands in.
+                if self._kf_finalize is not None:
+                    R_ref, t_ref = self._kf_finalize["ref_pose_approx"]
+                else:
+                    R_ref, t_ref = self.ref_pose_np
+                R_ref = np.asarray(R_ref, np.float64)
+                t_ref = np.asarray(t_ref, np.float64)
+                R_rel = preview.R_cw @ R_ref.T
+                t_rel = preview.t_cw - R_rel @ t_ref
+                pred_pose = (R_rel.astype(np.float32),
+                             t_rel.astype(np.float32))
+                prior = vio_coarse.make_tracker_prior(
+                    preview, R_ref, t_ref, float(self.last_rho),
+                    float(self.last_b), self.device)
+                v_init = self._t(preview.v)
+                bias_init = self._t(preview.bias)
+        if self._last_pose_dev is not None \
+                and self._prev_pose_dev is not None:
+            # Candidates from the device pose history: dispatch never waits
+            # on a pose copy.
+            R_c, t_c, mask_c = window_ops.track_candidates(
+                *self._last_pose_dev, *self._prev_pose_dev,
+                self.win.frames, self.ref_kf_slot)
+            if pred_pose is not None:
+                # The IMU prediction takes the pad slot of the [4] batch.
+                R_c = torch.cat([R_c[:3], self._t(pred_pose[0])[None]])
+                t_c = torch.cat([t_c[:3], self._t(pred_pose[1])[None]])
+                mask_c = torch.ones_like(mask_c)
+        else:
+            # Cold start (right after init or reset): host caches are fresh.
+            self._finalize_kf()
+            mR, mt = self.motion
+            lR, lt = self.T_last_ref
+            R_c = np.zeros((4, 3, 3), np.float32)
+            t_c = np.zeros((4, 3), np.float32)
+            mask_c = np.zeros(4, bool)
+            R_c[0] = np.eye(3)
+            R_c[1] = mR @ lR
+            t_c[1] = mR @ lt + mt
+            R_c[2] = lR
+            t_c[2] = lt
+            R_c[3] = np.eye(3)
+            mask_c[1:] = True
+            if pred_pose is not None:
+                R_c[0], t_c[0] = pred_pose
+                mask_c[0] = True
+        with TimeMeasurement("coarse_tracking"):
+            res, packed = self._track_dispatch(
+                pyr, R_c, t_c, mask_c, self.last_rho, self.last_b, prior,
+                v_init, bias_init)
+        R_cw, t_cw, aff_new = window_ops.compose_abs_pose(
+            res.R, res.t, res.rho, res.b_aff, self.win.frames,
+            self.ref_kf_slot)
+        self._prev_pose_dev = self._last_pose_dev or (R_cw, t_cw)
+        self._last_pose_dev = (R_cw, t_cw)
+        if self._valid_pose_dev is None:
+            f = self.win.frames
+            s = self.ref_kf_slot
+            self._valid_pose_dev = (f.R_cw[s], f.t_cw[s], f.aff[s])
+        self._valid_pose_dev = _guard_kf_pose(packed[-1], R_cw, t_cw,
+                                              aff_new, *self._valid_pose_dev)
+        imm_before = self.imm     # pre-trace pool (tensors are never mutated)
+        with TimeMeasurement("trace"):
+            self._trace_pool(R_cw, t_cw, aff_new, pyr)
+        self.shells.append(window.FrameShell(
+            frame_id=fid, timestamp=ts, ref_kf_id=self.ref_kf_id,
+            R_c_ref=np.eye(3), t_c_ref=np.zeros(3)))
+        self._rt_queue.append(dict(
+            fid=fid, ts=ts, pyr=pyr, packed=packed,
+            ref_kf_id=self.ref_kf_id,
+            # Tracked against a reference whose pose has not reached the
+            # host: None, patched by the keyframe's finalize.
+            ref_pose=(None if self._kf_finalize is not None
+                      else self.ref_pose_np),
+            shell_idx=len(self.shells) - 1,
+            R_cw=R_cw, t_cw=t_cw, aff=aff_new, imm_before=imm_before,
+            imu_chunk=imu_chunk, had_prior=prior is not None,
+            future=self._fetcher.submit(packed)))
+        if self.cfg.rt_dispatch_kf:
+            self._dispatch_kf_maybe(fid, preview)
+        self._rt_drain(keep_last=True)
+
+    def _rt_drain(self, keep_last: bool) -> None:
+        """Consume in-flight frames whose host copies have landed, oldest
+        first. Blocks on a copy only beyond rt_stall_depth in-flight frames
+        or on a full flush; keep_last leaves the newest frame in flight."""
+        keep = 1 if keep_last else 0
+        cap = max(self.cfg.rt_stall_depth, keep) if keep_last else 0
+        while len(self._rt_queue) > keep:
+            p = self._rt_queue[0]
+            if len(self._rt_queue) <= cap and not p["future"].done():
+                break
+            if p["ref_pose"] is None and len(self._rt_queue) <= cap \
+                    and self._kf_finalize is not None \
+                    and not self._kf_finalize["future"].done():
+                # The frame needs the deferred keyframe's host half, whose
+                # copy is still in flight: defer rather than block.
+                break
+            with TimeMeasurement("track_fetch"):
+                arr = p["future"].result()
+            if p["ref_pose"] is None:
+                # Finalize the deferred keyframe first; its patch loop must
+                # see this entry, so pop only afterwards.
+                self._finalize_kf()
+                if not self._rt_queue or self._rt_queue[0] is not p:
+                    # The finalize found a failed init and reset the map;
+                    # this frame and the rest of the queue died with it.
+                    continue
+            self._rt_queue.pop(0)
+            self._rt_consume(p, arr)
+
+    # -- dispatch-time keyframe decisions (Config.rt_dispatch_kf) --------
+    def _kf_score_of(self, flow_t: float, flow_rt: float,
+                     rho: float) -> float:
+        """Dispatch-decision keyframe score, the reference's: the square
+        root of the tracker's flow stats, scaled by rt_kf_density. The
+        reference means the RMS-flow form (FullSystem.cpp:1052-1054), linear
+        in the baseline as its rate extrapolation assumes; but the stats
+        are RMS already, so this grows with the square root of the baseline
+        (ROADMAP.md queue 3). The serial path keeps its own crossing in
+        _track_frame."""
+        cfg = self.cfg
+        return cfg.kf_weight * cfg.rt_kf_density * (
+            cfg.w_flow_t * np.sqrt(max(flow_t, 0.0)) / (self.w + self.h)
+            + cfg.w_flow_rt * np.sqrt(max(flow_rt, 0.0)) / (self.w + self.h)
+            + cfg.w_aff * abs(rho))
+
+    def _peek_landed_scores(self) -> None:
+        """Feed the score state from in-flight frames whose copies have
+        landed, without consuming them. With async_fetch=False every copy
+        lands at submit, so every frame's score is seen in order and the
+        decision is deterministic."""
+        for p in self._rt_queue:
+            if p.get("score_noted") or not p["future"].done():
+                continue
+            self._note_score(p, coarse_tracker.PackedTrack(
+                p["future"].result(), self.cfg.levels))
+
+    def _note_score(self, p, pk) -> None:
+        """Update the score state from one frame's stats (from the peek,
+        or from consume for a frame whose copy landed late)."""
+        if p.get("score_noted"):
+            return
+        p["score_noted"] = True
+        if not pk.any_valid or p["ref_kf_id"] != self.ref_kf_id:
+            return              # measured against a replaced reference
+        score = self._kf_score_of(pk.flow_t, pk.flow_rt, pk.rho)
+        # Rate from the absolute growth since the reference switch (the
+        # score is ~0 there); the first observation seeds the EMA.
+        d_epoch = p["fid"] - self._kf_epoch_fid
+        if d_epoch > 0:
+            obs = score / d_epoch
+            if self._kf_score_rate <= 0.0:
+                self._kf_score_rate = obs
+            else:
+                self._kf_score_rate = 0.5 * self._kf_score_rate + 0.5 * obs
+        prev = self._kf_score_meas
+        if prev is None or p["fid"] > prev[0]:
+            self._kf_score_meas = (p["fid"], score)
+
+    def _dispatch_kf_maybe(self, fid: int, preview) -> None:
+        """Decide at dispatch time whether the just-dispatched frame
+        becomes a keyframe (the newest landed score extrapolated to it by
+        the measured growth rate), and if so dispatch the keyframe's
+        device half from its own device tensors. While the previous
+        keyframe's host copy is in flight the decision waits up to
+        rt_kf_wait, then stretches the interval, up to rt_kf_stretch."""
+        if not self.initialized or self.is_lost:
+            return
+        self._peek_landed_scores()
+        meas = self._kf_score_meas
+        rate = self._kf_score_rate
+        if meas is not None:
+            pred = meas[1] + rate * (fid - meas[0])
+        else:
+            pred = rate * (fid - self._kf_epoch_fid)
+        # The interval floor bounds a transiently over-estimated rate.
+        if pred <= 1.0 or fid - self._kf_epoch_fid < 2:
+            return
+        kfp = self._kf_finalize
+        if kfp is not None and not kfp["future"].done():
+            waited = False
+            if self.cfg.rt_kf_wait > 0:
+                try:
+                    with TimeMeasurement("kf_decision_wait"):
+                        kfp["future"].exception(timeout=self.cfg.rt_kf_wait)
+                    waited = True
+                except TimeoutError:
+                    pass
+            if not waited:
+                if pred <= self.cfg.rt_kf_stretch:
+                    return      # stretch through the stall
+                with TimeMeasurement("kf_stretch_block"):
+                    kfp["future"].exception()
+        p = self._rt_queue[-1]        # the frame just dispatched
+        self._finalize_kf()
+        if not self.initialized or not self._rt_queue \
+                or self._rt_queue[-1] is not p:
+            return              # the finalize reset the map
+        # Tracking validity is unknown at dispatch: guard the keyframe pose
+        # on the device with the newest valid pose as fallback.
+        R_kf, t_kf, aff_kf = _guard_kf_pose(
+            p["packed"][-1], p["R_cw"], p["t_cw"], p["aff"],
+            *self._valid_pose_dev)
+        with TimeMeasurement("keyframe_total"):
+            if self.imu is not None:
+                approx = pred_v = None
+                if preview is not None:
+                    approx = (np.asarray(preview.R_cw, np.float32),
+                              np.asarray(preview.t_cw, np.float32))
+                    pred_v = np.asarray(preview.v)
+                self._make_keyframe_rt_vio(
+                    p["pyr"], p["fid"], R_kf, t_kf, aff_kf,
+                    shell_idx=p["shell_idx"], ref_pose_approx=approx,
+                    pred_v_override=pred_v)
+            else:
+                self._make_keyframe_rt(p["pyr"], p["fid"], R_kf, t_kf,
+                                       aff_kf, shell_idx=p["shell_idx"])
+
+    def _rt_consume(self, p, packed_np) -> None:
+        """Finish a pipelined frame from its fetched packed stats: rescue,
+        shell, motion model, IMU filter, consume-time keyframe decision
+        (rt_dispatch_kf=False), lost/reset logic."""
+        pk = coarse_tracker.PackedTrack(packed_np, self.cfg.levels)
+        if not pk.any_valid:
+            # Rescue against the current reference, with consistent host
+            # caches first.
+            self._finalize_kf()
+            res_r, pk_r = self._rescue_track(p["pyr"])
+            if pk_r.any_valid:
+                pk = pk_r
+                p["ref_pose"] = self.ref_pose_np
+                p["ref_kf_id"] = self.ref_kf_id
+                p["R_cw"], p["t_cw"], p["aff"] = window_ops.compose_abs_pose(
+                    res_r.R, res_r.t, res_r.rho, res_r.b_aff,
+                    self.win.frames, self.ref_kf_slot)
+                if p["had_prior"] and self.imu is not None:
+                    # The prior solve failed where visual rescue succeeded:
+                    # the belief is inconsistent; the next BA re-seeds it.
+                    self.imu.coarse = None
+                    p["had_prior"] = False
+        if not pk.any_valid:
+            # Lost: report the constant-velocity prediction.
+            mR, mt = self.motion
+            lR, lt = self.T_last_ref
+            pk.R = (mR @ lR).astype(np.float32)
+            pk.t = (mR @ lt + mt).astype(np.float32)
+            pk.rho, pk.b_aff = self.last_rho, self.last_b
+            p["ref_pose"] = self.ref_pose_np
+            p["ref_kf_id"] = self.ref_kf_id
+        R_old, t_old = p["ref_pose"]          # ref pose used at dispatch
+        R_cw_np = pk.R @ R_old
+        t_cw_np = pk.R @ t_old + pk.t
+        self.shells[p["shell_idx"]] = window.FrameShell(
+            frame_id=p["fid"], timestamp=p["ts"], ref_kf_id=p["ref_kf_id"],
+            R_c_ref=pk.R.copy(), t_c_ref=pk.t.copy(),
+            is_kf=self.shells[p["shell_idx"]].is_kf)
+        if pk.any_valid:
+            self.is_lost = False
+            self.track_energy_ref = min(
+                0.7 * self.track_energy_ref + 0.3 * float(pk.level_energy[0]),
+                self.cfg.track_gate_cap)
+            # Motion model relative to the current reference.
+            R_cur, t_cur = self.ref_pose_np
+            R_rel = (R_cw_np @ R_cur.T).astype(np.float32)
+            t_rel = (t_cw_np - R_rel @ t_cur).astype(np.float32)
+            lR, lt = self.T_last_ref
+            self.motion = (R_rel @ lR.T, t_rel - R_rel @ lR.T @ lt)
+            self.T_last_ref = (R_rel, t_rel)
+            self.last_rho = pk.rho
+            self.last_b = pk.b_aff
+        else:
+            self.is_lost = True
+            self.stats_lost_frames += 1
+
+        if self.imu is not None:
+            # Advance the belief through this frame's own chunk (the serial
+            # predict-before-track, replayed at consume), then fold in the
+            # visual evidence as the serial path does.
+            chunk = p["imu_chunk"]
+            advanced = chunk is not None and p["fid"] > self._belief_fid
+            if advanced:
+                self.imu.predict_coarse(chunk["pre_np"])
+                self._belief_fid = p["fid"]
+                if self._kf_finalize is not None \
+                        and self._rt_chunks_since_kf is not None \
+                        and p["fid"] > self._kf_finalize["fid"]:
+                    # Replayed after the deferred keyframe's reseed.
+                    self._rt_chunks_since_kf.append(
+                        (p["fid"], chunk["pre_np"]))
+            if pk.any_valid:
+                if self.imu.phase == imu_system.ACTIVE:
+                    # Fuse only when the belief sits at this frame.
+                    if p["had_prior"] and advanced:
+                        self.imu.fuse_tracked(pk.H_vis, R_cw_np, t_cw_np,
+                                              pk.v, pk.bias)
+                elif chunk is not None:
+                    self.imu.record_init_pose(p["fid"], p["ref_kf_id"],
+                                              pk.R, pk.t, R_cw_np,
+                                              chunk=chunk)
+
+        self._note_score(p, pk)
+        score = self._kf_score_of(pk.flow_t, pk.flow_rt, pk.rho)
+        if score > 1.0 and not self.is_lost \
+                and not self.cfg.rt_dispatch_kf:
+            # Consume-time keyframe: finish a previous one first; re-track
+            # only the newest rt_redispatch_max in-flight frames against
+            # the new reference, rewinding the pool to just before the
+            # first of them was traced.
+            self._finalize_kf()
+            n_redispatch = min(len(self._rt_queue),
+                               max(self.cfg.rt_redispatch_max, 0))
+            redispatch = (self._rt_queue[-n_redispatch:]
+                          if n_redispatch else [])
+            if redispatch:
+                self.imm = redispatch[0]["imm_before"]
+            with TimeMeasurement("keyframe_total"):
+                if self.imu is not None:
+                    # The tracked (pre-BA) pose stands in as the host
+                    # reference pose until the optimized one lands.
+                    self._make_keyframe_rt_vio(
+                        p["pyr"], p["fid"], p["R_cw"], p["t_cw"], p["aff"],
+                        shell_idx=p["shell_idx"],
+                        ref_pose_approx=(R_cw_np.astype(np.float32),
+                                         t_cw_np.astype(np.float32)))
+                else:
+                    self._make_keyframe_rt(p["pyr"], p["fid"], p["R_cw"],
+                                           p["t_cw"], p["aff"],
+                                           shell_idx=p["shell_idx"])
+            for q in redispatch:
+                # Identity check: the keyframe build may have reset the
+                # queue.
+                if any(q is x for x in self._rt_queue):
+                    self._rt_redispatch(q)
+        self._consec_lost = self._consec_lost + 1 if self.is_lost else 0
+        map_dead = self.initialized and self._n_active < 25 \
+            and self.stats_kf > 3
+        if map_dead or self._consec_lost > 8:
+            self._full_reset(p["pyr"], p["ts"], p["fid"])
+
+    def _rt_redispatch(self, p) -> None:
+        """Re-track an in-flight frame against the just-switched reference,
+        with candidates computed on the device from its own pose (the new
+        reference's pose has not reached the host), replacing its pending
+        results."""
+        R_c, t_c, mask_c = window_ops.rel_candidates(
+            p["R_cw"], p["t_cw"], self.win.frames, self.ref_kf_slot)
+        res, packed = self._track_dispatch(p["pyr"], R_c, t_c, mask_c, 0.0,
+                                           0.0)
+        R_cw, t_cw, aff_new = window_ops.compose_abs_pose(
+            res.R, res.t, res.rho, res.b_aff, self.win.frames,
+            self.ref_kf_slot)
+        p.update(packed=packed, ref_kf_id=self.ref_kf_id,
+                 ref_pose=(None if self._kf_finalize is not None
+                           else self.ref_pose_np),
+                 R_cw=R_cw, t_cw=t_cw, aff=aff_new, imm_before=self.imm,
+                 # The replacement solve carried no IMU prior.
+                 had_prior=False,
+                 future=self._fetcher.submit(packed))
+        if self._rt_queue and p is self._rt_queue[-1]:
+            self._last_pose_dev = (R_cw, t_cw)
+        self._trace_pool(R_cw, t_cw, aff_new, p["pyr"])
+
     def finish(self) -> None:
-        """Nothing is in flight in the serial path."""
+        """Flush the realtime pipeline: finalize the deferred keyframe,
+        consume every in-flight frame, and finalize again if consuming
+        made another keyframe. Nothing is in flight in serial mode."""
+        self._finalize_kf()
+        while self._rt_queue:
+            self._rt_drain(keep_last=False)
+            self._finalize_kf()
 
     # ------------------------------------------------------------------
     def _rescue_candidates(self):
@@ -234,15 +676,23 @@ class FullSystem:
             mask_c[k] = True
         return R_c, t_c, mask_c
 
-    def _track_multi(self, pyr, R_c, t_c, mask_c, prior=None, v_init=None,
-                     bias_init=None):
+    def _track_dispatch(self, pyr, R_c, t_c, mask_c, rho, b, prior=None,
+                        v_init=None, bias_init=None):
+        """Track the candidate batch against the tracker reference; the
+        result and the packed stats stay on the device."""
         gate = (self.cfg.track_gate_scale * self.track_energy_ref
                 + self.cfg.track_gate_offset)
-        res, packed = coarse_tracker.track_multi(
+        return coarse_tracker.track_multi(
             self.tracker_ref, pyr, self.calib, self._t(R_c), self._t(t_c),
-            self._t(mask_c, torch.bool), self._t(self.last_rho),
-            self._t(self.last_b), self._t(gate), levels=self.cfg.levels,
-            prior=prior, v_init=v_init, bias_init=bias_init)
+            self._t(mask_c, torch.bool), self._t(rho), self._t(b),
+            self._t(gate), levels=self.cfg.levels, prior=prior,
+            v_init=v_init, bias_init=bias_init)
+
+    def _track_multi(self, pyr, R_c, t_c, mask_c, prior=None, v_init=None,
+                     bias_init=None):
+        res, packed = self._track_dispatch(pyr, R_c, t_c, mask_c,
+                                           self.last_rho, self.last_b, prior,
+                                           v_init, bias_init)
         # ONE small fetch carries every stat the host needs.
         return res, coarse_tracker.PackedTrack(_np(packed), self.cfg.levels)
 
@@ -341,6 +791,16 @@ class FullSystem:
         """Rebuild the visual window from the current frame."""
         self.stats_resets += 1
         self._consec_lost = 0
+        self._rt_queue = []       # in-flight frames belong to the dead map
+        self._kf_finalize = None  # so does the deferred keyframe tail
+        self._rt_chunks_since_kf = None
+        self._last_pose_dev = None
+        self._prev_pose_dev = None
+        self._valid_pose_dev = None
+        self._kf_score_meas = None
+        self._kf_score_rate = 0.0
+        self._kf_epoch_fid = fid
+        self._belief_fid = -1
         self.win = window.Window(self.calib, self.h, self.w, self.cfg)
         self.imm = immature.empty_pool(self.cfg.i_max, self.device)
         self.initialized = False
@@ -360,6 +820,8 @@ class FullSystem:
         self._first_pyr = pyr
         self._first_ts = timestamp
         for k in range(len(self.shells) - 1, -1, -1):
+            # The reset frame is usually the newest shell, but in realtime
+            # mode a younger in-flight frame may sit after it.
             if self.shells[k].frame_id == fid:
                 self.shells[k] = window.FrameShell(
                     frame_id=fid, timestamp=timestamp, ref_kf_id=fid,
@@ -444,7 +906,8 @@ class FullSystem:
         with TimeMeasurement("ba_optimize"):
             ba_res = self._run_ba(max_iters=cfg.ba_iters)
         if self.stats_kf <= 4 and \
-                self._init_failed(float(self._ba_rmse_dev(ba_res))):
+                self._init_failed(float(self._ba_rmse_dev(ba_res)),
+                                  self.stats_kf):
             # Initialization failed (FullSystem.cpp:1417-1434).
             self._full_reset(pyr, ts, fid)
             return
@@ -566,8 +1029,12 @@ class FullSystem:
         n = torch.sum(pair_ok.to(torch.float32))
         return torch.sqrt(result.energy / torch.clamp(8.0 * n, min=1.0))
 
-    def _init_failed(self, rmse: float) -> bool:
-        th = {2: 20.0, 3: 13.0, 4: 9.0}.get(self.stats_kf)
+    @staticmethod
+    def _init_failed(rmse: float, kf_count: int) -> bool:
+        """Photometric RMSE thresholds on keyframes 2-4
+        (FullSystem.cpp:1417-1434): the two-frame init handed over a bad
+        map."""
+        th = {2: 20.0, 3: 13.0, 4: 9.0}.get(kf_count)
         return th is not None and (not np.isfinite(rmse) or rmse > th)
 
     def _record_kf_poses(self, pack_np: Optional[np.ndarray] = None):
@@ -665,44 +1132,37 @@ class FullSystem:
                     w.points, w.pair_mask, torch.zeros_like(w.pair_mask))
 
     # ------------------------------------------------------------------
-    def _kf_fused_tail_vio(self, newest_slot: int, snap) -> np.ndarray:
-        """Extended (visual-inertial) keyframe tail: vio_ba.vio_marg_fused
-        on the device, one host read, then the host float64 prior algebra
-        and the delayed-log events. Returns the pose pack. A diverged BA
-        (nearly every point dropped) is reverted once."""
+    def _dispatch_vio_tail(self, newest_slot: int):
+        """Dispatch of the fused extended keyframe tail, with no host read:
+        vio_ba.vio_marg_fused (victims, extended point-marg fold, pair
+        fold, drops; K1 in its linearization) and the FEJ, state and pose
+        tensors that ride its one host copy. Returns (refs to copy, points,
+        pair_mask)."""
         w = self.win
         imu = self.imu
+        slots = w.slots_by_age()
+        age_rank = np.full(self.cfg.f_max, -1, np.int32)
+        for r_, s_ in enumerate(slots):
+            age_rank[s_] = r_
+        n_drop = max(0, len(slots) - self.cfg.max_frames) \
+            if len(slots) > 2 else 0
+        (vlist, HM, bM, foldH, foldb, pts, pm, n_pre,
+         n_post) = vio_ba.vio_marg_fused(
+            self._vio_problem(), w.images, self._t(age_rank, torch.int32),
+            n_drop, newest_slot)
+        st = imu.states
+        fej = (w.frames.R0_cw, w.frames.t0_cw, w.frames.aff0, st.v0, st.bg0,
+               st.ba0, st.s_log0, st.g20)
+        refs = (vlist, HM, bM, foldH, foldb, n_pre, n_post,
+                window_ops.kf_pose_pack(w.frames), fej, st,
+                self._frame_th_dev)
+        return refs, pts, pm
 
-        def dispatch():
-            slots = w.slots_by_age()
-            age_rank = np.full(self.cfg.f_max, -1, np.int32)
-            for r_, s_ in enumerate(slots):
-                age_rank[s_] = r_
-            n_drop = max(0, len(slots) - self.cfg.max_frames) \
-                if len(slots) > 2 else 0
-            (vlist, HM, bM, foldH, foldb, pts, pm, n_pre,
-             n_post) = vio_ba.vio_marg_fused(
-                self._vio_problem(), w.images,
-                self._t(age_rank, torch.int32), n_drop, newest_slot)
-            st = imu.states
-            fej = (w.frames.R0_cw, w.frames.t0_cw, w.frames.aff0, st.v0,
-                   st.bg0, st.ba0, st.s_log0, st.g20)
-            with TimeMeasurement("kf_sync_stats"):
-                fetched = imu_system.to_host(
-                    (vlist, HM, bM, foldH, foldb, n_pre, n_post,
-                     window_ops.kf_pose_pack(w.frames), fej, st,
-                     self._frame_th_dev))
-            return fetched, pts, pm
-
-        fetched, pts_d, pm_d = dispatch()
-        if self._n_active > 60 and \
-                float(fetched[5]) < max(40.0, 0.15 * self._n_active):
-            w.frames, w.points, w.pair_mask, w.calib = snap[:4]
-            if snap[4] is not None:
-                imu.states = snap[4]
-            self.calib = w.calib
-            w.frames = window_ops.set_fej_current(w.frames, newest_slot)
-            fetched, pts_d, pm_d = dispatch()
+    def _apply_vio_tail_host(self, fetched, pts_d, pm_d) -> np.ndarray:
+        """Host half of the extended tail: float64 prior algebra, the
+        delayed-log events, slot bookkeeping. Returns the pose pack."""
+        w = self.win
+        imu = self.imu
         (vlist, HM_np, bM_np, foldH, foldb, _, n_post, pose_pack_np,
          fej_np, self._kf_st_host, self._frame_th_np) = fetched
         self._n_active = float(n_post)
@@ -726,6 +1186,30 @@ class FullSystem:
             w.points, w.pair_mask = window_ops.post_ba_update(
                 w.points, w.pair_mask, torch.zeros_like(w.pair_mask))
         return pose_pack_np
+
+    def _kf_fused_tail_vio(self, newest_slot: int, snap) -> np.ndarray:
+        """Extended (visual-inertial) keyframe tail: the device dispatch,
+        one host read, then the host half. Returns the pose pack. A
+        diverged BA (nearly every point dropped) is reverted once."""
+        w = self.win
+        imu = self.imu
+
+        def dispatch():
+            refs, pts, pm = self._dispatch_vio_tail(newest_slot)
+            with TimeMeasurement("kf_sync_stats"):
+                fetched = fetch.to_host(refs)
+            return fetched, pts, pm
+
+        fetched, pts_d, pm_d = dispatch()
+        if self._n_active > 60 and \
+                float(fetched[5]) < max(40.0, 0.15 * self._n_active):
+            w.frames, w.points, w.pair_mask, w.calib = snap[:4]
+            if snap[4] is not None:
+                imu.states = snap[4]
+            self.calib = w.calib
+            w.frames = window_ops.set_fej_current(w.frames, newest_slot)
+            fetched, pts_d, pm_d = dispatch()
+        return self._apply_vio_tail_host(fetched, pts_d, pm_d)
 
     def _vio_marginalize_frames(self, victims, event_quad, fold_np,
                                 fej_np) -> None:
@@ -825,6 +1309,236 @@ class FullSystem:
         return refs, build
 
     # ------------------------------------------------------------------
+    # Deferred keyframes (realtime): _make_keyframe_rt* dispatch the device
+    # half (insert, activate, BA, fused tail, tracker reference, spawn)
+    # and start the host copy of the tail's results; _finalize_kf* later
+    # read that copy and do the host half (the reference's mapping thread,
+    # FullSystem.cpp:1216, IMUIntegration.cpp:228-330).
+    def _kf_insert(self, pyr, fid, R_cw, t_cw, aff_new, shell_idx: int):
+        """Occupy a window slot with the new keyframe; returns the slot."""
+        cfg = self.cfg
+        w = self.win
+        slot = w.free_frame_slot()
+        w.insert_frame(slot, fid, pyr, R_cw, t_cw, aff_new)
+        w.set_frame_prior(slot, 0.0, cfg.aff_a_prior, cfg.aff_b_prior)
+        self.shells[shell_idx].is_kf = True
+        self.stats_kf += 1
+        return slot
+
+    def _kf_rmse_dev(self, ba_res) -> torch.Tensor:
+        """Init-health RMSE, checked at finalize on keyframes 2-4."""
+        if self.stats_kf <= 4:
+            return self._ba_rmse_dev(ba_res)
+        return torch.zeros((), device=self.device)
+
+    def _kf_switch_reference(self, slot: int, fid: int, pyr) -> int:
+        """Device half of the reference switch: build the tracker
+        reference and spawn immature points in the new keyframe, and
+        record the switch on the host (later frames compose against the
+        new slot; its pose arrives with the finalize). Returns the previous
+        reference's frame id."""
+        with TimeMeasurement("tracker_ref"):
+            self._build_tracker_ref_dev(slot)
+        with TimeMeasurement("spawn_immatures"):
+            self._spawn_immatures(slot, pyr)
+        prev_ref = self.ref_kf_id
+        self.ref_kf_slot = slot
+        self.ref_kf_id = fid
+        self._kf_epoch_fid = fid
+        self._kf_score_meas = None
+        return prev_ref
+
+    def _make_keyframe_rt(self, pyr, fid, R_cw, t_cw, aff_new,
+                          shell_idx: int) -> None:
+        """Deferred visual keyframe."""
+        w = self.win
+        slot = self._kf_insert(pyr, fid, R_cw, t_cw, aff_new, shell_idx)
+        with TimeMeasurement("activate"):
+            self._activate_points(slot)
+        snap = (w.frames, w.points, w.pair_mask, w.calib, None)
+        with TimeMeasurement("ba_optimize"):
+            ba_res = self._run_ba(max_iters=self.cfg.ba_iters)
+        rmse_d = self._kf_rmse_dev(ba_res)
+        w.frames = window_ops.set_fej_current(w.frames, slot)
+        vlist, HM, bM, pts, pm, n_pre, n_post = \
+            self._dispatch_marg_fused(slot)
+        prev_ref = self._kf_switch_reference(slot, fid, pyr)
+        refs = (vlist, HM, bM, n_pre, n_post,
+                window_ops.kf_pose_pack(w.frames), rmse_d,
+                self._frame_th_dev)
+        self._kf_finalize = dict(
+            slot=slot, fid=fid, snap=snap, prev_ref=prev_ref,
+            kf_count=self.stats_kf, future=self._fetcher.submit(refs),
+            pts=pts, pm=pm)
+
+    def _make_keyframe_rt_vio(self, pyr, fid, R_cw, t_cw, aff_new,
+                              shell_idx: int, ref_pose_approx=None,
+                              pred_v_override=None) -> None:
+        """Deferred keyframe with an IMU: the keyframe-to-keyframe chunk
+        stops at this frame, the extended tail runs once the IMU is
+        ACTIVE (the visual one before). ref_pose_approx: the keyframe's
+        tracked or predicted pose, the host reference pose for IMU priors
+        until the optimized one lands; pred_v_override: the preview's
+        velocity at this frame (dispatch-time keyframes)."""
+        w = self.win
+        imu = self.imu
+        prev_slot = self.ref_kf_slot
+        slot = self._kf_insert(pyr, fid, R_cw, t_cw, aff_new, shell_idx)
+        pred_v = pred_v_override
+        if pred_v is None and imu.coarse is not None:
+            pred_v = np.asarray(imu.coarse.v)
+        with TimeMeasurement("imu_kf_pair"):
+            prev_fid = (w.slot_frame_id[prev_slot] if prev_slot >= 0
+                        else None)
+            imu.on_new_keyframe(prev_slot, slot, pred_v, upto_fid=fid,
+                                fids=(prev_fid, fid))
+        with TimeMeasurement("activate"):
+            self._activate_points(slot)
+        snap = (w.frames, w.points, w.pair_mask, w.calib, imu.states)
+        with TimeMeasurement("ba_optimize"):
+            ba_res = self._run_ba(max_iters=self.cfg.ba_iters)
+        rmse_d = self._kf_rmse_dev(ba_res)
+        w.frames = window_ops.set_fej_current(w.frames, slot)
+        self._imu_set_fej(slot)
+        if self._vio_mode():
+            with TimeMeasurement("kf_dispatch_tail"):
+                refs, pts, pm = self._dispatch_vio_tail(slot)
+            kind = "vio"
+        else:
+            vlist, HM, bM, pts, pm, n_pre, n_post = \
+                self._dispatch_marg_fused(slot)
+            refs = (vlist, HM, bM, n_pre, n_post,
+                    window_ops.kf_pose_pack(w.frames), self._frame_th_dev)
+            kind = "visual_imu"
+        prev_ref = self._kf_switch_reference(slot, fid, pyr)
+        self._kf_finalize = dict(
+            kind=kind, slot=slot, fid=fid, snap=snap, prev_ref=prev_ref,
+            kf_count=self.stats_kf, ref_pose_approx=ref_pose_approx,
+            future=self._fetcher.submit(refs + (rmse_d,)), pts=pts, pm=pm)
+        # Chunks consumed while this finalize is pending, replayed after
+        # the coarse-filter reseed.
+        self._rt_chunks_since_kf = []
+
+    def _finalize_reset_if_init_failed(self, kfp, rmse) -> bool:
+        """Init-health check one frame late: on failure rebuild from the
+        newest in-flight frame (or the keyframe's own pyramid)."""
+        if not self._init_failed(float(rmse), int(kfp["kf_count"])):
+            return False
+        src = self._rt_queue[-1] if self._rt_queue else None
+        if src is not None:
+            self._full_reset(src["pyr"], src["ts"], src["fid"])
+        else:
+            self._full_reset(self.win.pyramids[kfp["slot"]], 0.0, kfp["fid"])
+        return True
+
+    def _finalize_common(self, kfp, pose_pack_np) -> np.ndarray:
+        """Pose caches and the host half of the reference switch; patch
+        in-flight frames tracked against this reference before its pose
+        reached the host."""
+        pose_pack = self._record_kf_poses(pose_pack_np)
+        self._tracker_ref_host_update(kfp["slot"], kfp["fid"], pose_pack_np,
+                                      prev_ref_id=kfp["prev_ref"])
+        for q in self._rt_queue:
+            if q["ref_pose"] is None:
+                q["ref_pose"] = self.ref_pose_np
+                q["ref_kf_id"] = self.ref_kf_id
+        return pose_pack
+
+    def _finalize_kf_vio(self, kfp) -> None:
+        """Host half of a deferred keyframe with an IMU."""
+        w = self.win
+        imu = self.imu
+        slot, fid = kfp["slot"], kfp["fid"]
+        with TimeMeasurement("kf_finalize_fetch"):
+            fetched = kfp["future"].result()
+        fetched, rmse_np = fetched[:-1], fetched[-1]
+        if self._finalize_reset_if_init_failed(kfp, rmse_np):
+            return
+        n_pre = float(fetched[5] if kfp["kind"] == "vio" else fetched[3])
+        if self._n_active > 60 and n_pre < max(40.0, 0.15 * self._n_active):
+            # Rare divergence revert, frames late: restore the snapshot and
+            # redo the tail synchronously.
+            w.frames, w.points, w.pair_mask, w.calib = kfp["snap"][:4]
+            if kfp["snap"][4] is not None:
+                imu.states = kfp["snap"][4]
+            self.calib = w.calib
+            w.frames = window_ops.set_fej_current(w.frames, slot)
+            if kfp["kind"] == "vio":
+                pose_pack_np = self._kf_fused_tail_vio(slot, kfp["snap"])
+            else:
+                pose_pack_np = self._kf_fused_tail(slot, kfp["snap"])
+            self._build_tracker_ref_dev(slot)
+        elif kfp["kind"] == "vio":
+            with TimeMeasurement("kf_apply_host"):
+                pose_pack_np = self._apply_vio_tail_host(
+                    fetched, kfp["pts"], kfp["pm"])
+        else:
+            (vlist, HM_np, bM_np, _, n_post, pose_pack_np,
+             self._frame_th_np) = fetched
+            self._n_active = float(n_post)
+            self._apply_marg_host(vlist, HM_np, bM_np, kfp["pts"], kfp["pm"])
+        pose_pack = self._finalize_common(kfp, pose_pack_np)
+
+        # The inertial phase machine (postBAInit seam), frames late.
+        if imu.phase == imu_system.COARSE_INIT:
+            if imu.try_initialize(self.kf_poses):
+                self._imu_activate(slot)
+        if imu.phase == imu_system.ACTIVE:
+            with TimeMeasurement("pgba_maybe"):
+                adopted = imu.maybe_run_pgba(
+                    w.frames, w.slot_frame_id,
+                    active_event_fn=self._active_visual_event,
+                    submit_fn=self._fetcher.submit)
+            F = self.cfg.f_max
+            R_np = pose_pack[:9 * F].reshape(F, 3, 3)[slot]
+            t_np = pose_pack[9 * F:12 * F].reshape(F, 3)[slot]
+            # The states rode the vio copy; after a PGBA adoption (new
+            # states) or on the activation keyframe (visual tail) they are
+            # read again inside.
+            st_np = None if (adopted or kfp["kind"] != "vio") \
+                else self._kf_st_host
+            with TimeMeasurement("coarse_reseed"):
+                imu.reinit_coarse_from_ba(R_np, t_np, slot, st_np=st_np)
+                # The belief now sits at the keyframe, possibly ahead of
+                # the consume position; replay the post-keyframe chunks
+                # consumed since (their visual fusion is lost).
+                self._belief_fid = max(self._belief_fid, fid)
+                for fid_ch, ch in (self._rt_chunks_since_kf or []):
+                    imu.predict_coarse(ch)
+                    self._belief_fid = fid_ch
+            self._kf_st_host = None
+        self._rt_chunks_since_kf = None
+
+    def _finalize_kf(self) -> None:
+        """Host half of the deferred keyframe, if one is pending."""
+        kfp = self._kf_finalize
+        if kfp is None:
+            return
+        self._kf_finalize = None
+        if "kind" in kfp:
+            self._finalize_kf_vio(kfp)
+            return
+        w = self.win
+        slot = kfp["slot"]
+        with TimeMeasurement("kf_finalize_fetch"):
+            (vlist, HM_np, bM_np, n_pre, n_post, pose_pack_np, rmse_np,
+             self._frame_th_np) = kfp["future"].result()
+        if self._finalize_reset_if_init_failed(kfp, rmse_np):
+            return
+        if self._n_active > 60 and \
+                float(n_pre) < max(40.0, 0.15 * self._n_active):
+            # Rare divergence revert, frames late.
+            w.frames, w.points, w.pair_mask, w.calib = kfp["snap"][:4]
+            self.calib = w.calib
+            w.frames = window_ops.set_fej_current(w.frames, slot)
+            pose_pack_np = self._kf_fused_tail(slot, kfp["snap"])
+            self._build_tracker_ref_dev(slot)
+        else:
+            self._n_active = float(n_post)
+            self._apply_marg_host(vlist, HM_np, bM_np, kfp["pts"], kfp["pm"])
+        self._finalize_common(kfp, pose_pack_np)
+
+    # ------------------------------------------------------------------
     def _build_tracker_ref_dev(self, slot: int) -> None:
         """Project all points into the new KF and build the semi-dense
         tracking reference (makeCoarseDepthL0)."""
@@ -841,10 +1555,13 @@ class FullSystem:
             w.points.mask & (hosted | valid))
 
     def _tracker_ref_host_update(self, slot: int, fid: int,
-                                 pose_pack: np.ndarray) -> None:
-        """Pose caches + motion-model rebase from a fetched pose pack."""
+                                 pose_pack: np.ndarray,
+                                 prev_ref_id: Optional[int] = None) -> None:
+        """Pose caches + motion-model rebase from a fetched pose pack.
+        prev_ref_id names the previous reference when a deferred keyframe
+        already recorded the switch at dispatch time."""
         F = self.cfg.f_max
-        prev = self.ref_kf_id
+        prev = self.ref_kf_id if prev_ref_id is None else prev_ref_id
         R_new_ref = pose_pack[:9 * F].reshape(F, 3, 3)[slot]
         t_new_ref = pose_pack[9 * F:12 * F].reshape(F, 3)[slot]
         aff_ref = pose_pack[12 * F:14 * F].reshape(F, 2)[slot]
@@ -865,6 +1582,12 @@ class FullSystem:
         self.ref_kf_id = fid
         self.last_rho = 0.0
         self.last_b = 0.0
+        if self._kf_epoch_fid != fid:
+            # Synchronous reference switch (initializer handoff, serial
+            # keyframes): a fresh dispatch-decision epoch. Deferred
+            # keyframes started theirs at dispatch.
+            self._kf_epoch_fid = fid
+            self._kf_score_meas = None
 
     def _set_tracker_ref(self, slot: int, fid: int,
                          pose_pack: Optional[np.ndarray] = None):

@@ -14,15 +14,17 @@ Init phases:
 
 Preintegration runs on the host in float64 (`preint.preintegrate_np`) and
 is uploaded once per use. Pairs are (older slot, newer slot, host preint
-dict). Not ported (only the realtime pipeline reaches them): the
-background PGBA thread, the asynchronous snapshot fetch and the
-multi-chunk preview prediction; nor the tracker-sigma init weighting that
-the reference keeps off by default.
+dict). The realtime pipeline adds its seams: frame-id-tagged chunks (the
+keyframe-to-keyframe chunk stops at a keyframe decided frames late), the
+non-mutating multi-chunk preview prediction, the asynchronous PGBA
+snapshot copy and PGBA on a background thread. Not ported: the
+tracker-sigma init weighting that the reference keeps off by default.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +34,7 @@ from dmvio_tpu_torch.models import delayed, imu_init, pgba, vio_ba
 from dmvio_tpu_torch.models import vio_coarse
 from dmvio_tpu_torch.ops import ba_solve, preint
 from dmvio_tpu_torch.utils import lie
+from dmvio_tpu_torch.utils.fetch import to_host
 from dmvio_tpu_torch.utils.timing import TimeMeasurement
 
 # Rolling init window length (reference maxNumPoses, IMUInitSettings.h:38).
@@ -63,17 +66,6 @@ class IMUCalib:
     pgba_delay: int = 100
     pgba_max_kfs: int = 100
     pgba_every: int = 6
-
-
-def to_host(x):
-    """Tensors -> numpy arrays through tuples, lists and NamedTuples."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    if isinstance(x, tuple) and hasattr(x, "_fields"):
-        return type(x)(*(to_host(a) for a in x))
-    if isinstance(x, (tuple, list)):
-        return type(x)(to_host(a) for a in x)
-    return x
 
 
 def _stack_np(pres_np: List[dict]) -> dict:
@@ -139,6 +131,7 @@ class IMUSystem:
         self._kf_acc: List[np.ndarray] = []
         self._kf_gyr: List[np.ndarray] = []
         self._kf_dts: List[np.ndarray] = []
+        self._kf_fids: List[int] = []   # frame id per buffered chunk
         # Coarse-init rolling window: poses relative to their tracking
         # reference + frame-to-frame host preints.
         self._init_poses: List[Tuple[np.ndarray, np.ndarray, int]] = []
@@ -174,20 +167,30 @@ class IMUSystem:
         # Keyframe-to-keyframe preints recorded before ACTIVE, fid-keyed;
         # consumed by activate().
         self._pending_pairs: List[Tuple[int, int, dict]] = []
+        # Realtime pipeline: the preview's prefix cache, the asynchronous
+        # PGBA snapshot in flight, and the background PGBA run. FullSystem
+        # sets pgba_background to cfg.realtime (the serial mode stays
+        # deterministic).
+        self._preview_cache = None
+        self._pgba_pending = None
+        self._pgba_bg = None
+        self.pgba_background = False
 
     def clear_init_window(self) -> None:
         """Drop the init window and the KF-chunk buffer (after a visual
         re-initialization the recorded poses live at another scale)."""
         for buf in (self._init_poses, self._init_pres, self._init_fids,
                     self._init_dts, self._kf_acc, self._kf_gyr,
-                    self._kf_dts):
+                    self._kf_dts, self._kf_fids):
             buf.clear()
 
     # -- per-frame ingestion ------------------------------------------------
-    def add_frame_imu(self, acc, gyr, dts) -> None:
+    def add_frame_imu(self, acc, gyr, dts, fid: int = -1) -> None:
         """Buffer one frame's measurements and preintegrate the frame
         chunk on the host in float64 (the coarse filter and the init window
-        both consume it)."""
+        both consume it). `fid` tags the chunk with its frame id, so that a
+        keyframe decided frames late (realtime) can split the
+        keyframe-to-keyframe buffer at its own frame."""
         if len(dts) == 0:
             self.last_frame_pre_np = None
             self._last_chunk_acc_mean = None
@@ -196,10 +199,20 @@ class IMUSystem:
         self._kf_acc.append(np.asarray(acc, np.float32))
         self._kf_gyr.append(np.asarray(gyr, np.float32))
         self._kf_dts.append(np.asarray(dts, np.float32))
+        self._kf_fids.append(int(fid))
         bias_np = (self.coarse.bias if self.coarse is not None
                    else np.zeros(6))
         self.last_frame_pre_np = preint.preintegrate_np(acc, gyr, dts,
                                                         bias_np)
+
+    def frame_chunk(self) -> Optional[dict]:
+        """Snapshot of the just-ingested frame chunk, for the realtime
+        pipeline, which consumes a frame after newer chunks have
+        overwritten `last_frame_pre_np`."""
+        if self.last_frame_pre_np is None:
+            return None
+        return dict(pre_np=self.last_frame_pre_np,
+                    acc_mean=self._last_chunk_acc_mean)
 
     def gravity_guess(self) -> np.ndarray:
         if self._acc_n == 0:
@@ -209,17 +222,54 @@ class IMUSystem:
         return imu_init.gravity_from_accel(mean).numpy()
 
     # -- tracking-side (coarse, host float64) ------------------------------
-    def predict_coarse(self):
-        """Propagate the coarse belief through the last frame chunk."""
-        if self.phase != ACTIVE or self.coarse is None \
-                or self.last_frame_pre_np is None:
+    def predict_coarse(self, chunk_np: Optional[dict] = None):
+        """Propagate the coarse belief through one frame chunk: the last
+        ingested by default; the realtime pipeline passes the consumed
+        frame's own chunk."""
+        if chunk_np is None:
+            chunk_np = self.last_frame_pre_np
+        if self.phase != ACTIVE or self.coarse is None or chunk_np is None:
             return None
         with TimeMeasurement("imu_predict"):
             self.coarse = vio_coarse.predict(
-                self.coarse, self.last_frame_pre_np,
+                self.coarse, chunk_np,
                 np.asarray(self.calib.R_cb, np.float64),
                 np.asarray(self.calib.t_cb, np.float64))
         return self.coarse
+
+    def predict_preview(self, chunks_np) -> Optional[
+            vio_coarse.CoarseIMUState]:
+        """Non-mutating prediction through a list of frame chunks: the
+        realtime dispatch-time prediction. The belief sits at the last
+        consumed frame; the in-flight frames' chunks and the new frame's
+        are propagated through a copy. None without a belief or on a chunk
+        gap (a None entry), which breaks the chain.
+
+        Incremental: when the belief is the same object as at the previous
+        call and that call's chunk list is a prefix of this one, only the
+        new suffix is propagated. Identity keys are sound because chunk
+        dicts are snapshots the realtime queue holds unchanged, and every
+        belief update rebinds `self.coarse`."""
+        if self.phase != ACTIVE or self.coarse is None:
+            return None
+        if any(ch is None for ch in chunks_np):
+            return None
+        key = tuple(id(ch) for ch in chunks_np)
+        state, todo = self.coarse, chunks_np
+        cached = self._preview_cache
+        if cached is not None and cached[0] is self.coarse \
+                and key[:len(cached[1])] == cached[1]:
+            state = cached[2]
+            todo = chunks_np[len(cached[1]):]
+        R_cb = np.asarray(self.calib.R_cb, np.float64)
+        t_cb = np.asarray(self.calib.t_cb, np.float64)
+        with TimeMeasurement("imu_predict"):
+            for ch in todo:
+                state = vio_coarse.predict(state, ch, R_cb, t_cb)
+        # The chunk dicts stay referenced by the cache, so their ids cannot
+        # be reused by new chunks while the key is live.
+        self._preview_cache = (self.coarse, key, state, list(chunks_np))
+        return state
 
     def coarse_prior(self, R_ref_np, t_ref_np, rho0, b0):
         if self.phase != ACTIVE or self.coarse is None:
@@ -237,24 +287,27 @@ class IMUSystem:
 
     # -- init machine -------------------------------------------------------
     def record_init_pose(self, fid: int, ref_fid: int, R_rel, t_rel,
-                         R_cw_approx) -> None:
+                         R_cw_approx, chunk: Optional[dict] = None) -> None:
         """Feed a tracked-frame pose (relative to its tracking-reference
         keyframe, resolved against the latest optimized keyframe poses at
-        init time) and its chunk into the init window."""
-        if self.phase == ACTIVE or self.last_frame_pre_np is None:
+        init time) and its chunk into the init window. `chunk` is the
+        frame's own frame_chunk() in realtime mode, where the last chunk
+        has moved on by consume time."""
+        if chunk is None:
+            chunk = self.frame_chunk()
+        if self.phase == ACTIVE or chunk is None:
             return
-        if self._last_chunk_acc_mean is not None:
+        if chunk["acc_mean"] is not None:
             # Body-frame specific force -> camera frame (R_cb) -> DSO world
             # (tracked attitude), averaged for the gravity bootstrap.
             self._acc_sum += np.asarray(R_cw_approx).T @ (
-                np.asarray(self.calib.R_cb, np.float64)
-                @ self._last_chunk_acc_mean)
+                np.asarray(self.calib.R_cb, np.float64) @ chunk["acc_mean"])
             self._acc_n += 1
         self._init_poses.append((np.asarray(R_rel), np.asarray(t_rel),
                                  ref_fid))
-        self._init_pres.append(self.last_frame_pre_np)
+        self._init_pres.append(chunk["pre_np"])
         self._init_fids.append(fid)
-        self._init_dts.append(float(self.last_frame_pre_np["dt"]))
+        self._init_dts.append(float(chunk["pre_np"]["dt"]))
         if len(self._init_poses) > INIT_WINDOW:
             for buf in (self._init_poses, self._init_pres, self._init_fids,
                         self._init_dts):
@@ -413,28 +466,39 @@ class IMUSystem:
         self.phase = ACTIVE
 
     # -- keyframe-side ------------------------------------------------------
-    def kf_chunk_preint(self) -> Optional[dict]:
+    def kf_chunk_preint(self, upto_fid: Optional[int] = None
+                        ) -> Optional[dict]:
         """Preintegrate everything since the last keyframe (host float64)
-        and clear the buffer."""
+        and take it out of the buffer. `upto_fid` stops the chunk at the
+        keyframe's own frame: in realtime mode younger frames' samples are
+        already buffered by then; they belong to the next pair and stay."""
         if not self._kf_dts:
             return None
-        acc = np.concatenate(self._kf_acc)
-        gyr = np.concatenate(self._kf_gyr)
-        dts = np.concatenate(self._kf_dts)
+        if upto_fid is None:
+            n_take = len(self._kf_dts)
+        else:
+            n_take = sum(1 for f in self._kf_fids if f <= int(upto_fid))
+        if n_take == 0:
+            return None
+        acc = np.concatenate(self._kf_acc[:n_take])
+        gyr = np.concatenate(self._kf_gyr[:n_take])
+        dts = np.concatenate(self._kf_dts[:n_take])
         blin_np = np.zeros(6) if self.init_result is None else \
             np.asarray(self.init_result.bias)
         pre_np = preint.preintegrate_np(acc, gyr, dts, blin_np)
-        for buf in (self._kf_acc, self._kf_gyr, self._kf_dts):
-            buf.clear()
+        for buf in (self._kf_acc, self._kf_gyr, self._kf_dts, self._kf_fids):
+            del buf[:n_take]
         return pre_np
 
     def on_new_keyframe(self, prev_slot: int, new_slot: int,
                         pred_v: Optional[np.ndarray],
+                        upto_fid: Optional[int] = None,
                         fids: Optional[tuple] = None) -> None:
         """Register the keyframe-to-keyframe pair and seed the new slot's
         states. fids = (previous keyframe's frame id, new one's): before
-        ACTIVE the preintegration is kept fid-keyed for activate()."""
-        pre_np = self.kf_chunk_preint()
+        ACTIVE the preintegration is kept fid-keyed for activate().
+        upto_fid: see kf_chunk_preint."""
+        pre_np = self.kf_chunk_preint(upto_fid)
         if self.phase != ACTIVE or self.states is None:
             if pre_np is not None and fids is not None \
                     and fids[0] is not None and fids[1] is not None:
@@ -608,15 +672,46 @@ class IMUSystem:
         self.delayed_log.record_event(ev, sym)
 
     def maybe_run_pgba(self, frames_dev, slot_fids,
-                       active_event_fn=None,
-                       every: Optional[int] = None) -> bool:
-        """Trigger PGBA periodically (synchronously: the serial mode stays
-        deterministic); adopt its result when the scale marginal improves
-        (threshold-gated transitions, IMUInitializerTransitions.h)."""
+                       active_event_fn=None, every: Optional[int] = None,
+                       submit_fn=None) -> bool:
+        """Trigger PGBA periodically; adopt its result when the scale
+        marginal improves (threshold-gated transitions,
+        IMUInitializerTransitions.h).
+
+        In the serial mode everything runs here, synchronously. The
+        realtime pipeline passes `submit_fn` (its fetcher's submit): the
+        trigger keyframe then only starts the snapshot's host copy, the
+        next keyframe starts the optimization from it, and with
+        `pgba_background` that runs on a thread whose result a later
+        keyframe adopts (the reference's RealtimePGBAState)."""
         if self.phase != ACTIVE or self.states is None:
             return False
         if self.calib.transition_model == 5:
             return False       # coarse IMU init only: never run PGBA
+        bg = self._pgba_bg
+        if bg is not None:
+            # Harvest a finished background optimization first.
+            if bg["thread"].is_alive():
+                return False        # still optimizing; keep collecting KFs
+            self._pgba_bg = None
+            res = bg["result"][0]
+            if res is not None:
+                self.last_pgba_svar = float(res.s_var)
+            if res is not None and res.ok:
+                return self._adopt_pgba(res, frames_dev, slot_fids)
+            self._retry_pgba_soon()
+            return False
+        pending = self._pgba_pending
+        if pending is not None:
+            # The trigger keyframe's snapshot copy has landed meanwhile.
+            self._pgba_pending = None
+            with TimeMeasurement("pgba_snapshot"):
+                win_pack, ev_pack, st_np = pending["future"].result()
+                win = self.build_kf_snapshot(win_pack, pending["slot_fids"])
+                active_event = (pending["ev_build"](ev_pack)
+                                if pending["ev_build"] else None)
+            return self._start_pgba(win, active_event, st_np, frames_dev,
+                                    slot_fids)
         self.kf_since_pgba += 1
         if every is None:
             every = self.calib.pgba_every
@@ -632,10 +727,45 @@ class IMUSystem:
         refs = ((frames_dev.R_cw, frames_dev.t_cw, frames_dev.aff,
                  st.v, st.bg, st.ba),
                 ev_disp[0] if ev_disp else None, (st.s_log, st.g2))
+        if submit_fn is not None:
+            self._pgba_pending = dict(
+                future=submit_fn(refs), slot_fids=list(slot_fids),
+                ev_build=ev_disp[1] if ev_disp else None)
+            return False
         with TimeMeasurement("pgba_snapshot"):
             win_pack, ev_pack, st_np = to_host(refs)
             win = self.build_kf_snapshot(win_pack, slot_fids)
             active_event = ev_disp[1](ev_pack) if ev_disp else None
+        return self._start_pgba(win, active_event, st_np, frames_dev,
+                                slot_fids)
+
+    def _retry_pgba_soon(self) -> None:
+        """A failed run must not consume the whole cadence slot (short
+        sequences get few): retry in 2 keyframes."""
+        self.kf_since_pgba = max(
+            self.kf_since_pgba, max(2, self.calib.pgba_every // 2) - 2)
+
+    def _start_pgba(self, win, active_event, st_np, frames_dev,
+                    slot_fids) -> bool:
+        """Run PGBA on host snapshots: here, or on a background thread
+        that touches no tensor (a copy of the delayed log, the window's
+        host KFStates, the host active event and scale/gravity)."""
+        if self.pgba_background:
+            log_copy = self.delayed_log.snapshot()
+            holder = [None]
+            max_kfs = self.calib.pgba_max_kfs
+
+            def work():
+                with TimeMeasurement("pgba_thread"):
+                    holder[0] = pgba.run(log_copy, win, active_event,
+                                         float(st_np[0]),
+                                         np.asarray(st_np[1]),
+                                         max_kfs=max_kfs)
+
+            th = threading.Thread(target=work, name="pgba", daemon=True)
+            th.start()
+            self._pgba_bg = {"thread": th, "result": holder}
+            return False
         with TimeMeasurement("pgba"):
             res = pgba.run(self.delayed_log, win, active_event,
                            float(st_np[0]), np.asarray(st_np[1]),
@@ -643,9 +773,7 @@ class IMUSystem:
         if res is not None:
             self.last_pgba_svar = float(res.s_var)
         if res is None or not res.ok:
-            # A failed run must not consume the whole cadence slot.
-            self.kf_since_pgba = max(
-                self.kf_since_pgba, max(2, self.calib.pgba_every // 2) - 2)
+            self._retry_pgba_soon()
             return False
         return self._adopt_pgba(res, frames_dev, slot_fids)
 

@@ -23,9 +23,12 @@ from dmvio_tpu_torch.utils.camera import Calib
 
 @dataclasses.dataclass
 class Config:
-    """Runtime knobs of the serial visual path, defaults mirroring the
-    reference operating point. `realtime` and `mesh_devices` exist so a
-    caller can ask for them; the port's FullSystem refuses both."""
+    """Runtime knobs, defaults mirroring the reference operating point.
+    `mesh_devices` exists so a caller can ask for it; the port's
+    FullSystem refuses it. The `rt_*` knobs and `async_fetch` steer the
+    realtime pipeline (`realtime=True`) with the reference's names,
+    defaults and meanings (dmvio_tpu/models/window.py says how each was
+    chosen); they were tuned to the TPU's host link, not to this card."""
 
     f_max: int = 8              # window capacity
     p_max: int = 2048           # active point capacity
@@ -43,7 +46,32 @@ class Config:
     aff_a_prior: float = 1e6
     aff_b_prior: float = 1e4
     min_rel_baseline: float = 0.02
+    # Pipelined tracking/mapping (the reference's realtime mode): each
+    # frame's tracking is dispatched at once and consumed when its result
+    # copy has landed; keyframes are decided at dispatch and their host
+    # half runs deferred; PGBA runs on a background thread.
     realtime: bool = False
+    # The frame loop blocks on the oldest in-flight frame only beyond this
+    # many in-flight frames (it also bounds the IMU preview's horizon).
+    rt_stall_depth: int = 24
+    # Decide keyframes at dispatch time from the newest landed tracker
+    # score extrapolated by its per-frame growth; False decides at consume
+    # time from each frame's own stats.
+    rt_dispatch_kf: bool = True
+    # Density factor of the dispatch-time keyframe score (RMS-flow form).
+    rt_kf_density: float = 2.0
+    # Seconds a keyframe decision waits for the previous keyframe's host
+    # copy before stretching the keyframe interval instead.
+    rt_kf_wait: float = 0.15
+    # Predicted-score multiple of the threshold past which the decision
+    # blocks on that copy rather than stretch further.
+    rt_kf_stretch: float = 2.0
+    # In-flight frames re-tracked against a consume-time keyframe's new
+    # reference (the newest ones).
+    rt_redispatch_max: int = 24
+    # Copy results to the host asynchronously (utils/fetch.py); False
+    # copies at submit, which makes the pipeline deterministic.
+    async_fetch: bool = True
     track_gate_scale: float = 1.5
     track_gate_offset: float = 0.5
     track_gate_cap: float = 100.0

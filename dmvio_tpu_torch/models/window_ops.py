@@ -1,9 +1,10 @@
 """Device-side window bookkeeping ops.
 
-Counterpart of dmvio_tpu/models/window_ops.py (serial path): point
-admission into free slots, immature respawn with eviction, post-BA outlier
-pruning and the marginalization mask plumbing, all as tensor ops with
-static shapes and exact masking. Updates are functional (clone, then
+Counterpart of dmvio_tpu/models/window_ops.py: point admission into free
+slots, immature respawn with eviction, post-BA outlier pruning, the
+marginalization mask plumbing and the realtime pipeline's device-side
+tracking candidates, all as tensor ops with static shapes and exact
+masking. Updates are functional (clone, then
 assign): the keyframe path keeps snapshots of the window to revert a
 diverged BA, so no op mutates its inputs.
 
@@ -214,6 +215,44 @@ def compose_abs_pose(R_rel, t_rel, rho, b_aff, frames: BAFrames, slot: int):
     return (R_rel @ R_ref, R_rel @ t_ref + t_rel,
             torch.stack([aff_ref[0] + rho,
                          b_aff + torch.exp(rho) * aff_ref[1]]))
+
+
+def track_candidates(R_last, t_last, R_prev, t_prev, frames: BAFrames,
+                     slot: int):
+    """Tracking candidate batch from the last two frames' device poses:
+    [constant velocity, zero motion, identity at the reference, pad],
+    relative to window frame `slot`. The realtime dispatch builds it on
+    the device so that it never waits for a pose copy."""
+    R_ref = frames.R_cw[slot]
+    t_ref = frames.t_cw[slot]
+    # Motion in the world frame, T_m = T_last o T_prev^-1, applied once
+    # more for constant velocity.
+    R_m = R_last @ R_prev.T
+    t_m = t_last - R_m @ t_prev
+    R_cv = R_m @ R_last
+    t_cv = R_m @ t_last + t_m
+    R1 = R_cv @ R_ref.T
+    R2 = R_last @ R_ref.T
+    eye = torch.eye(3, dtype=R1.dtype, device=R1.device)
+    z = torch.zeros(3, dtype=t_cv.dtype, device=t_cv.device)
+    R_c = torch.stack([R1, R2, eye, eye])
+    t_c = torch.stack([t_cv - R1 @ t_ref, t_last - R2 @ t_ref, z, z])
+    mask = torch.tensor([True, True, True, False], device=R1.device)
+    return R_c, t_c, mask
+
+
+def rel_candidates(R_cw, t_cw, frames: BAFrames, slot: int):
+    """Candidates for an in-flight frame re-tracked against window frame
+    `slot` (a reference whose pose has not reached the host): [the frame's
+    own pose re-expressed, identity], padded to the fixed [4] batch."""
+    R_rel = R_cw @ frames.R_cw[slot].T
+    t_rel = t_cw - R_rel @ frames.t_cw[slot]
+    eye = torch.eye(3, dtype=R_rel.dtype, device=R_rel.device)
+    z = torch.zeros(3, dtype=t_rel.dtype, device=t_rel.device)
+    R_c = torch.stack([R_rel, eye, R_rel, eye])
+    t_c = torch.stack([t_rel, z, t_rel, z])
+    mask = torch.tensor([True, True, False, False], device=R_rel.device)
+    return R_c, t_c, mask
 
 
 def activate_and_admit(pool: ImmaturePoints, frames: BAFrames,

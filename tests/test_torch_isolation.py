@@ -87,6 +87,23 @@ def test_default_device_is_cuda_and_raises_without_it():
         full_system.FullSystem(calib, 96, 128, window.Config(levels=3))
 
 
+def test_realtime_defaults_to_cuda_and_raises_without_it():
+    """The realtime pipeline, visual and inertial, runs on the card by
+    default and never falls back to the CPU."""
+    calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
+    for imu_calib in (None, imu_system.IMUCalib()):
+        if torch.cuda.is_available():
+            fs = full_system.FullSystem(
+                calib, 96, 128, window.Config(levels=3, realtime=True),
+                imu_calib=imu_calib)
+            assert fs.device.type == "cuda" and fs.calib.fx.is_cuda
+            continue
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            full_system.FullSystem(
+                calib, 96, 128, window.Config(levels=3, realtime=True),
+                imu_calib=imu_calib)
+
+
 @pytest.mark.parametrize("make", [
     lambda: Calib.create(100.0, 100.0, 63.5, 47.5),
     lambda: synthetic.default_scene(2.0),
@@ -107,13 +124,14 @@ def test_constructors_default_to_cuda(make):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(cfg=dict(realtime=True)),
+    dict(cfg=dict(mesh_devices=2, realtime=True)),
     dict(cfg=dict(mesh_devices=2)),
-    dict(cfg=dict(realtime=True), imu_calib=imu_system.IMUCalib()),
+    dict(cfg=dict(mesh_devices=4, realtime=True),
+         imu_calib=imu_system.IMUCalib()),
 ])
 def test_unported_modes_refuse(kwargs):
-    """Realtime mode (visual or inertial) and multi-device BA are not
-    ported; the serial VIO path is (tests/test_torch_full_vio_*.py)."""
+    """Multi-device BA is not ported, in any mode (serial or realtime,
+    visual or inertial)."""
     calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
     cfg = window.Config(levels=3, **kwargs.get("cfg", {}))
     with pytest.raises(NotImplementedError):

@@ -22,8 +22,14 @@ chip_smoke.py's VIO gates are the larger of the test suite's scale
 (sim3 0.04 dist + 0.01, se3 0.08 dist + 0.01) and 1.5x the worst of these
 runs at its frame count.
 
-    python tools/reference_smoke_ate.py [n_frames]
-    python tools/reference_smoke_ate.py --vio [n_frames] [--from N]
+`--rt` runs the same in the realtime pipeline (Config realtime=True with
+the reference's rt_* defaults and async_fetch=False, which makes the run
+deterministic; flushed with finish()): the gates of chip_smoke.py's
+rt-vo-512 and rt-vio-512 phases. Its VIO runs print the ATE after the last
+frame only: scoring a realtime run mid-way flushes its pipeline.
+
+    python tools/reference_smoke_ate.py [--rt] [n_frames]
+    python tools/reference_smoke_ate.py [--rt] --vio [n_frames] [--from N]
 """
 
 import json
@@ -69,10 +75,16 @@ def pose(i):
             jnp.asarray(-R_cw @ center, jnp.float32))
 
 
-def run_vo(n):
+def config(rt):
+    if rt:
+        return window.Config(**dict(CFG, realtime=True, async_fetch=False))
+    return window.Config(**CFG)
+
+
+def run_vo(n, rt):
     calib = Calib.create(380.0, 380.0, W / 2 - 0.5, H / 2 - 0.5)
     scene = synthetic.default_scene(depth=2.0)
-    cfg = window.Config(**CFG)
+    cfg = config(rt)
     fs = full_system.FullSystem(calib, H, W, cfg)
     gt = []
     t0 = time.perf_counter()
@@ -82,11 +94,12 @@ def run_vo(n):
                      timestamp=i * 0.05)
         R_wc, t_wc = lie.se3_inv(R, t)
         gt.append((i * 0.05, np.asarray(R_wc), np.asarray(t_wc)))
+    fs.finish()
     wall = time.perf_counter() - t0
     est = fs.trajectory()
     centers = np.stack([g[2] for g in gt])
     print(json.dumps({
-        "frames": n, "ate_sim3": trajectory.ate_rmse(est, gt),
+        "frames": n, "realtime": rt, "ate_sim3": trajectory.ate_rmse(est, gt),
         "path_length": float(np.linalg.norm(np.diff(centers, axis=0),
                                             axis=1).sum()),
         "keyframes": fs.stats_kf, "resets": fs.stats_resets,
@@ -116,11 +129,11 @@ def vio_ate(fs, seq, n):
             trajectory.ate_rmse(est_t, gt_t, with_scale=True), dist)
 
 
-def run_vio(n, n_from, noise_seed):
+def run_vio(n, n_from, noise_seed, rt):
     seq = synthetic.generate_vio_sequence(
         n_frames=n, scene=synthetic.default_scene(depth=2.0), **VIO_SEQ)
     rng = None if noise_seed is None else np.random.default_rng(noise_seed)
-    fs = full_system.FullSystem(seq["calib"], H, W, window.Config(**CFG),
+    fs = full_system.FullSystem(seq["calib"], H, W, config(rt),
                                 imu_calib=imu_system.IMUCalib())
     spf = seq["steps_per_frame"]
     active_at = pgba_at = None
@@ -141,12 +154,13 @@ def run_vio(n, n_from, noise_seed):
             active_at = i
         if pgba_at is None and getattr(fs.imu, "pgba_count", 0) >= 1:
             pgba_at = i
-        if i + 1 >= n_from:
+        if i + 1 >= (n if rt else n_from):
             a = vio_ate(fs, seq, i + 1)
             if a is not None:
                 ates[i + 1] = {"se3": a[0], "sim3": a[1], "dist": a[2]}
     print(json.dumps({
-        "frames": n, "noise_seed": noise_seed, "active_at": active_at,
+        "frames": n, "realtime": rt, "noise_seed": noise_seed,
+        "active_at": active_at,
         "pgba_at": pgba_at, "pgba_count": getattr(fs.imu, "pgba_count", 0),
         "keyframes": fs.stats_kf, "resets": fs.stats_resets,
         "lost_frames": fs.stats_lost_frames,
@@ -156,6 +170,9 @@ def run_vio(n, n_from, noise_seed):
 
 def main():
     args = sys.argv[1:]
+    rt = "--rt" in args
+    if rt:
+        args.remove("--rt")
     if args and args[0] == "--vio":
         args = args[1:]
         n_from = 0
@@ -165,9 +182,9 @@ def main():
             del args[k:k + 2]
         n = int(args[0]) if args else 80
         for seed in NOISE_SEEDS:
-            run_vio(n, n_from, seed)
+            run_vio(n, n_from, seed, rt)
     else:
-        run_vo(int(args[0]) if args else 40)
+        run_vo(int(args[0]) if args else 40, rt)
 
 
 if __name__ == "__main__":
