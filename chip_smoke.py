@@ -5,7 +5,8 @@
 Phases (any failure raises and exits non-zero; there is no CPU fallback):
  1. print the card (`nvidia-smi` name and power limit) and versions;
  2. build every kernel of the main path from csrc/ (one nvcc per source,
-    all started together) into build/kernels/;
+    all started together) into build/kernels/, and the native dataset
+    loader (native/dataloader.cpp, g++) into build/native/;
  3. hold each kernel against its plain PyTorch version on the card, at the
     shapes the main path gives it and on edge cases, and time the kernel,
     the plain version and a PyTorch library yardstick; time the launch
@@ -36,7 +37,14 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
     waits, the largest in-flight queue, host syncs per frame (PyTorch's
     sync debug mode, over the last frames) and frame times while a PGBA
     thread ran;
- 7. print the `kernels` JSON line, the card line, and last the result line.
+ 7. drive the port's dataset CLI (cli-vio-512): write a photometric
+    synthetic VIO dataset with the port's make_synthetic on the card, run
+    run_dataset.run in-process on it with the IMU, the native prefetch
+    loader, the headless and HTTP viewers and the inertial streams
+    attached; check every output file, the health counters and the ATE of
+    result.txt (sim3) and resultScaled.txt (se3) against gt.csv, and print
+    frames/s, the loader's time per frame and K1's launches on this path;
+ 8. print the `kernels` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -59,10 +67,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import dmvio_tpu_torch  # noqa: E402  (fails outside a checkout)
-from dmvio_tpu_torch import kernels  # noqa: E402
+from dmvio_tpu_torch import kernels, run_dataset  # noqa: E402
+from dmvio_tpu_torch.io import native  # noqa: E402
 from dmvio_tpu_torch.models import full_system, imu_system  # noqa: E402
 from dmvio_tpu_torch.models import window  # noqa: E402
 from dmvio_tpu_torch.ops import patch_sample, pyramid, select  # noqa: E402
+from dmvio_tpu_torch.tools import make_synthetic  # noqa: E402
 from dmvio_tpu_torch.utils import lie, synthetic, timing  # noqa: E402
 from dmvio_tpu_torch.utils import trajectory  # noqa: E402
 from dmvio_tpu_torch.utils.camera import (PATTERN, Calib,  # noqa: E402
@@ -110,6 +120,30 @@ RT_VIO_FRAMES = 120
 SYNC_WINDOW = 10
 REF_RT_VIO_SE3 = 0.0536047279579157
 REF_RT_VIO_SIM3 = 0.046614582321374526
+# CLI phase: the port's make_synthetic (seed 4, used by no other phase) at
+# 512x512 with a baked response and vignette, run through run_dataset with
+# the IMU. CLI_FRAMES is the smallest frame count at which the JAX CLI on
+# the same arguments (on the CPU) is ACTIVE with a PGBA cycle done in all
+# three runs of `tools/reference_smoke_ate.py --cli` (clean, 1e-2
+# intensity noise from seeds 1 and 2); the gates are max(the CLI test
+# suite's share of path: sim3 0.04 dist + 0.01, se3 0.10 dist + 0.01; 1.5x
+# the worst of those runs at CLI_FRAMES), scored over every frame as
+# tests/test_cli_e2e.py scores result.txt and resultScaled.txt.
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DATA = os.path.join(ROOT, "build", "cli_data")
+CLI_OUT = os.path.join(ROOT, "build", "cli_out") + os.sep
+CLI_SYNTH = ["w=512", "h=512", "photometric=1", "seed=4"]
+CLI_ARGS = ["useimu=1", "preset=0", "nativeLoader=1", "nogui=0",
+            "viewerPort=0", "quiet=1"]
+# `tools/reference_smoke_ate.py --cli 90 --from 30`: every run ACTIVE at
+# frame 34 and through its first PGBA cycle at frame 47, so 48 frames.
+CLI_FRAMES = 48
+REF_CLI_SIM3 = 0.009287827306270802
+REF_CLI_SE3 = 0.14254867849080516
+CLI_FILES = ("result.txt", "resultKFs.txt", "resultScaled.txt",
+             "timings.txt", "usedSettings.txt", "scalesdso.txt",
+             "babiasdso.txt", "bavel.txt", "bagravdir.txt",
+             os.path.join("viz", "index.html"))
 ATOL = 1e-4            # on 0-255 intensities: a few f32 ulps at 255
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
@@ -735,6 +769,88 @@ def phase_rt_vio(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Dataset CLI
+# ---------------------------------------------------------------------------
+
+
+def phase_cli(dev):
+    """cli-vio-512: the port's make_synthetic writes the dataset on `dev`,
+    then run_dataset.run drives it in-process with K1's count and the
+    stage timers set to 0 just before."""
+    import shutil
+
+    shutil.rmtree(CLI_DATA, ignore_errors=True)
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    os.makedirs(CLI_OUT)
+    t0 = time.perf_counter()
+    make_synthetic.main([f"out={CLI_DATA}", f"n={CLI_FRAMES}", *CLI_SYNTH,
+                         f"device={dev}"])
+    synth_s = time.perf_counter() - t0
+    d = CLI_DATA
+    argv = [f"files={d}/images", f"calib={d}/camera.txt",
+            f"tsFile={d}/times.txt", f"imuFile={d}/imu.txt",
+            f"gammaCalib={d}/pcalib.txt", f"vignette={d}/vignette.png",
+            *CLI_ARGS, f"resultsPrefix={CLI_OUT}", f"device={dev}"]
+    torch.cuda.synchronize()
+    timing.reset()
+    patch_sample.sample_patch3.launches = 0
+    t0 = time.perf_counter()
+    summary = run_dataset.run(argv)
+    wall = time.perf_counter() - t0
+    launches = patch_sample.sample_patch3.launches
+    stats = timing.get_stats()
+    load = stats.get("load_image", {"mean": math.nan, "median": math.nan})
+
+    missing = [f for f in CLI_FILES
+               if not os.path.exists(CLI_OUT + f)
+               or os.path.getsize(CLI_OUT + f) == 0]
+    gt = trajectory.read_tum(os.path.join(d, "gt.csv"))
+    est = trajectory.read_tum(CLI_OUT + "result.txt") \
+        if "result.txt" not in missing else []
+    est_s = trajectory.read_tum(CLI_OUT + "resultScaled.txt") \
+        if "resultScaled.txt" not in missing else []
+    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
+                 for p in est + est_s)
+    dist = trajectory.path_length(np.stack([g[2] for g in gt]))
+    sim3 = trajectory.ate_rmse(est, gt[:len(est)]) if est else math.inf
+    se3 = trajectory.ate_rmse(est_s, gt[:len(est_s)], with_scale=False) \
+        if est_s else math.inf
+    gate_sim3 = max(0.04 * dist + 0.01, 1.5 * REF_CLI_SIM3)
+    gate_se3 = max(0.10 * dist + 0.01, 1.5 * REF_CLI_SE3)
+    out = dict(summary)
+    out.update(
+        synth_s=synth_s, cli_wall_s=wall, fps_whole_cli=CLI_FRAMES / wall,
+        load_ms_per_frame_mean=load["mean"] * 1e3,
+        load_ms_per_frame_median=load["median"] * 1e3,
+        frame_ms_median=stats["frame_total"]["median"] * 1e3,
+        ate_sim3=sim3, ate_se3=se3, path_length=dist, gate_sim3=gate_sim3,
+        gate_se3=gate_se3, k1_launches=launches, missing_files=missing,
+        stage_median_ms={k: v["median"] * 1e3 for k, v in stats.items()})
+    log("cli-vio-512: " + json.dumps(out))
+    checks = [
+        (summary["native_loader"], "the native loader did not start"),
+        (not missing, f"missing or empty outputs: {missing}"),
+        (summary["frames"] == CLI_FRAMES and len(est) == CLI_FRAMES,
+         f"{len(est)} poses for {CLI_FRAMES} frames"),
+        (summary["imu_phase"] == imu_system.ACTIVE,
+         f"IMU phase {summary['imu_phase']}"),
+        (summary["pgba_count"] >= 1, "no PGBA cycle completed"),
+        (summary["resets"] == 0, f"{summary['resets']} resets"),
+        (summary["lost_frames"] <= 2, f"{summary['lost_frames']} lost"),
+        (finite, "non-finite pose in the results"),
+        (launches > 0, "K1 was never launched on the CLI path"),
+        (math.isfinite(sim3) and sim3 < gate_sim3,
+         f"sim3 ATE {sim3} >= gate {gate_sim3}"),
+        (math.isfinite(se3) and se3 < gate_se3,
+         f"se3 ATE {se3} >= gate {gate_se3}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError("cli-vio-512: " + msg)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -748,6 +864,11 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = kernels.build(["patch_sample"])
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError(f"native loader: {native.load_error()}")
+    log(f"built the native loader ({native.LIB.name}) in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in kernels.build_log("patch_sample").splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
@@ -757,13 +878,16 @@ def main() -> int:
     k1["launches_vio_path"] = phase_vio(dev)
     k1["launches_rt_vo_path"] = phase_rt_vo(dev)
     k1["launches_rt_vio_path"] = phase_rt_vio(dev)
+    k1["launches_cli_path"] = phase_cli(dev)
     log(f"K1 launches: VO path {k1['launches_main_path']}, VIO path "
         f"{k1['launches_vio_path']}, realtime VO path "
         f"{k1['launches_rt_vo_path']}, realtime VIO path "
-        f"{k1['launches_rt_vio_path']}")
+        f"{k1['launches_rt_vio_path']}, CLI path "
+        f"{k1['launches_cli_path']}")
     k1["launches"] = (k1["launches_main_path"] + k1["launches_vio_path"]
                       + k1["launches_rt_vo_path"]
-                      + k1["launches_rt_vio_path"])
+                      + k1["launches_rt_vio_path"]
+                      + k1["launches_cli_path"])
     print(json.dumps({"kernels": [k1]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -27,8 +27,18 @@ init machine, PGBA, coarse-filter reseed) runs deferred, at the next
 finalize; PGBA runs on a background thread. The same K1 kernel runs in the
 keyframe's activation, BA and tail, visual and inertial.
 
-Not ported: multi-device BA (mesh_devices > 1 raises NotImplementedError)
-and the observer chain (output wrappers), which belongs to the IO slice.
+Observers (io/output_wrapper.Output3DWrapper, the reference's observer
+chain) attached to `output_wrappers` receive every tracked pose, the system
+status, reset notices and, per keyframe, the window's poses, its
+connectivity, the energy threshold and the metric transform; the newest
+keyframe's depth map and inertial state only when a wrapper asks for them
+(wants_depth_images, wants_imu_state), in one host copy. With no wrapper
+attached the chain costs nothing on the device and no host sync.
+
+save_checkpoint / load_checkpoint serialize the whole odometry state
+(utils/checkpoint.py).
+
+Not ported: multi-device BA (mesh_devices > 1 raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import numpy as np
 import torch
 
 from dmvio_tpu_torch import device as resolve_device
+from dmvio_tpu_torch.io import output_wrapper as ow
 from dmvio_tpu_torch.models import ba, coarse_tracker, delayed, imu_system
 from dmvio_tpu_torch.models import initializer, vio_ba, vio_coarse, window
 from dmvio_tpu_torch.models import window_ops
@@ -50,6 +61,19 @@ from dmvio_tpu_torch.utils.timing import TimeMeasurement
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+def _fetch_flat(tensors) -> List[np.ndarray]:
+    """Copy several small device tensors to the host in ONE transfer (cast
+    to float32, concatenated, split again); bool masks come back as 0/1."""
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in tensors])
+    host = _np(flat)
+    out, k = [], 0
+    for x in tensors:
+        n = x.numel()
+        out.append(host[k:k + n].reshape(tuple(x.shape)))
+        k += n
+    return out
 
 
 def _guard_kf_pose(anyv, R, t, aff, R_fb, t_fb, aff_fb):
@@ -146,6 +170,12 @@ class FullSystem:
         # Frame id the coarse IMU belief sits at; a dispatch-time keyframe
         # can move it ahead of the consume position.
         self._belief_fid = -1
+        # Observer chain (Output3DWrapper.h:144) and the device tensors of
+        # the newest tracker reference's depth map, copied only for a
+        # wrapper that wants depth images.
+        self.output_wrappers = []
+        self._published_status = -1
+        self._ref_depth_dev = None
 
     def _t(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
@@ -225,6 +255,9 @@ class FullSystem:
             else:
                 self.imu.record_init_pose(fid, self.ref_kf_id, pk.R, pk.t,
                                           R_cw_np)
+        if self.output_wrappers:
+            self._publish_pose(fid, timestamp, pk.R @ self.ref_pose_np[0],
+                               pk.R @ self.ref_pose_np[1] + pk.t)
         if need_kf and not self.is_lost:
             # Never build a keyframe from an untracked pose.
             with TimeMeasurement("keyframe_total"):
@@ -569,6 +602,8 @@ class FullSystem:
                                               pk.R, pk.t, R_cw_np,
                                               chunk=chunk)
 
+        if self.output_wrappers:
+            self._publish_pose(p["fid"], p["ts"], R_cw_np, t_cw_np)
         self._note_score(p, pk)
         score = self._kf_score_of(pk.flow_t, pk.flow_rt, pk.rho)
         if score > 1.0 and not self.is_lost \
@@ -838,6 +873,10 @@ class FullSystem:
             imu.coarse = None
             imu.clear_init_window()
             imu.kf_since_pgba = 0
+        for w_ in self.output_wrappers:
+            w_.reset()
+            w_.publish_system_status(ow.RESETTING)
+        self._published_status = ow.RESETTING
 
     def _initialize(self, r: initializer.InitResult, pyr, ts, fid):
         cfg = self.cfg
@@ -924,6 +963,7 @@ class FullSystem:
             self._set_tracker_ref(slot, fid, pose_pack)
         with TimeMeasurement("spawn_immatures"):
             self._spawn_immatures(slot, pyr)
+        self._publish_keyframe_events()
 
         if self.imu is not None:
             if self.imu.phase == imu_system.COARSE_INIT:
@@ -1442,6 +1482,7 @@ class FullSystem:
             if q["ref_pose"] is None:
                 q["ref_pose"] = self.ref_pose_np
                 q["ref_kf_id"] = self.ref_kf_id
+        self._publish_keyframe_events()
         return pose_pack
 
     def _finalize_kf_vio(self, kfp) -> None:
@@ -1547,12 +1588,14 @@ class FullSystem:
             w.frames, w.points.host, w.points.u, w.points.v,
             w.points.idepth, w.calib, slot)
         hosted = w.points.host == slot
+        u_c = torch.where(hosted, w.points.u, u_p)
+        v_c = torch.where(hosted, w.points.v, v_p)
+        d_c = torch.where(hosted, w.points.idepth, d_p)
+        m_c = w.points.mask & (hosted | valid)
         self.tracker_ref = coarse_tracker.make_tracker_ref(
-            w.pyramids[slot], w.calib,
-            torch.where(hosted, w.points.u, u_p),
-            torch.where(hosted, w.points.v, v_p),
-            torch.where(hosted, w.points.idepth, d_p),
-            w.points.mask & (hosted | valid))
+            w.pyramids[slot], w.calib, u_c, v_c, d_c, m_c)
+        # Kept for the depth-map publish; copied only when a wrapper asks.
+        self._ref_depth_dev = (u_c, v_c, d_c, m_c, w.pyramids[slot][0])
 
     def _tracker_ref_host_update(self, slot: int, fid: int,
                                  pose_pack: np.ndarray,
@@ -1601,6 +1644,94 @@ class FullSystem:
         self.imm = window_ops.respawn_immatures(
             self.imm, self.win.frames, self.win.points, pyr[0],
             self.win.calib, slot, h=self.h, w=self.w)
+
+    # ------------------------------------------------------------------
+    # Observer chain: the reference's Output3DWrapper events.
+    def _publish_pose(self, fid: int, ts: float, R_cw, t_cw) -> None:
+        """Tracked pose of a frame, and the system status when it
+        changed."""
+        status = (ow.VISUAL_INERTIAL if self._vio_mode()
+                  else ow.VISUAL_ONLY)
+        for w_ in self.output_wrappers:
+            w_.publish_cam_pose(fid, ts, R_cw, t_cw)
+            if status != self._published_status:
+                w_.publish_system_status(status)
+        self._published_status = status
+
+    def _publish_keyframe_events(self) -> None:
+        """Per keyframe: window poses, connectivity, the newest keyframe's
+        energy threshold, the metric transform; its depth map and
+        inertial state only for a wrapper that wants them, read in one
+        copy to the host."""
+        if not self.output_wrappers:
+            return
+        w = self.win
+        win_fids = [f for f in w.slot_frame_id if f is not None]
+        conn = {f: [g for g in win_fids if g != f] for f in win_fids}
+        want_depth = any(getattr(w_, "wants_depth_images", False)
+                         for w_ in self.output_wrappers)
+        want_imu = self._vio_mode() and any(
+            getattr(w_, "wants_imu_state", False)
+            for w_ in self.output_wrappers)
+        refs = []
+        if want_depth:
+            u_d, v_d, d_d, m_d, img_d = self._ref_depth_dev
+            refs += [u_d, v_d, d_d, m_d, img_d[0] if img_d.dim() == 3
+                     else img_d]
+        if want_imu:
+            slot = self.ref_kf_slot
+            st = self.imu.states
+            refs += [st.v[slot], st.bg[slot], st.ba[slot]]
+        host = _fetch_flat(refs) if refs else []
+        depth_pack = None
+        if want_depth:
+            u_np, v_np, d_np, m_np, img_np = host[:5]
+            sel = m_np > 0.5
+            depth_pack = (u_np[sel], v_np[sel], d_np[sel], img_np)
+        th_new = (float(self._frame_th_np[self.ref_kf_slot])
+                  if self._frame_th_np is not None else None)
+        for w_ in self.output_wrappers:
+            w_.publish_keyframes(dict(self.kf_poses))
+            w_.publish_graph(conn)
+            if th_new is not None:
+                w_.publish_frame_energy_th(self.ref_kf_id, th_new)
+            if depth_pack is not None:
+                w_.push_depth_image(self.ref_kf_id, depth_pack[0],
+                                    depth_pack[1], depth_pack[2],
+                                    img=depth_pack[3])
+            if self._vio_mode():
+                w_.publish_transform_dso_to_imu(
+                    float(np.exp(self.imu.s_log)), self.imu.g2)
+        if want_imu:
+            # The reference's per-BA scale / bias / gravity / velocity
+            # streams (BAIMULogic.cpp:88-91, 439-455).
+            v_np, bg_np, ba_np = host[-3:]
+            R_g = lie.so3_exp(torch.tensor(
+                [self.imu.g2[0], self.imu.g2[1], 0.0],
+                dtype=torch.float32)).numpy()
+            g_dir = R_g @ np.array([0.0, 0.0, -1.0])
+            sh = next((s for s in reversed(self.shells)
+                       if s.frame_id == self.ref_kf_id), None)
+            ts = sh.timestamp if sh is not None else 0.0
+            for w_ in self.output_wrappers:
+                if getattr(w_, "wants_imu_state", False):
+                    w_.publish_imu_state(
+                        ts, float(np.exp(self.imu.s_log)), bg_np, ba_np,
+                        v_np, g_dir)
+
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Serialize the complete odometry state (a capability DM-VIO
+        lacks): every tensor as CPU numpy."""
+        from dmvio_tpu_torch.utils import checkpoint
+        checkpoint.save(self, path)
+
+    @staticmethod
+    def load_checkpoint(path: str, device=None) -> "FullSystem":
+        """Restore a FullSystem onto `device` (None means CUDA, and raises
+        without it), wherever it was saved."""
+        from dmvio_tpu_torch.utils import checkpoint
+        return checkpoint.load(path, device=device)
 
     # ------------------------------------------------------------------
     def metric_trajectory(self):

@@ -137,3 +137,74 @@ def test_unported_modes_refuse(kwargs):
     with pytest.raises(NotImplementedError):
         full_system.FullSystem(calib, 96, 128, cfg, device="cpu",
                                imu_calib=kwargs.get("imu_calib"))
+
+
+def _tiny_dataset(root):
+    """A two-frame DSO folder (camera, times, IMU, PNG frames)."""
+    from dmvio_tpu_torch.tools import make_synthetic
+
+    make_synthetic.main([f"out={root}", "n=2", "w=128", "h=96",
+                         "device=cpu"])
+    return [f"files={root}/images", f"calib={root}/camera.txt",
+            f"tsFile={root}/times.txt", f"imuFile={root}/imu.txt"]
+
+
+@pytest.mark.parametrize("entry", ["run_dataset.run", "run_live.run",
+                                   "io.dataset.load_undistorter",
+                                   "io.dataset.open_dataset",
+                                   "FullSystem.load_checkpoint"])
+def test_io_entry_points_default_to_cuda(entry, tmp_path):
+    """The IO slice's entry points run on the card unless device=cpu is
+    passed, and raise without CUDA instead of falling back."""
+    from dmvio_tpu_torch import run_dataset, run_live
+    from dmvio_tpu_torch.io import dataset
+
+    args = _tiny_dataset(str(tmp_path / "data"))
+    files, calib = (a.split("=", 1)[1] for a in args[:2])
+    ckpt = str(tmp_path / "ckpt.pkl")
+    cpu = torch.device("cpu")
+    fs = full_system.FullSystem(
+        Calib.create(100.0, 100.0, 63.5, 47.5, device=cpu), 96, 128,
+        window.Config(f_max=4, p_max=128, i_max=128, levels=3), device=cpu)
+    fs.save_checkpoint(ckpt)
+    prefix = f"resultsPrefix={tmp_path}/o_"
+    call = {
+        "run_dataset.run": lambda: run_dataset.run(
+            args + [prefix, "quiet=1", "maxFrames=1", "levels=3"]),
+        "run_live.run": lambda: run_live.run(
+            [f"source=folder:{tmp_path}/data", args[1], prefix, "quiet=1",
+             "maxFrames=1", "levels=3"]),
+        "io.dataset.load_undistorter": lambda: dataset.load_undistorter(
+            calib),
+        "io.dataset.open_dataset": lambda: dataset.open_dataset(files, calib),
+        "FullSystem.load_checkpoint": lambda: full_system.FullSystem
+        .load_checkpoint(ckpt),
+    }[entry]
+    if torch.cuda.is_available():
+        call()
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+
+
+def test_no_port_file_builds_into_native(tmp_path, monkeypatch):
+    """The port builds the shared C++ loader (native/dataloader.cpp) into
+    build/native/ and never writes into native/: no port source runs the
+    Makefile, and a fresh build leaves native/ as it was."""
+    from dmvio_tpu_torch.io import native
+
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert '"make"' not in text and "'make'" not in text, path
+    assert native.BUILD_DIR == ROOT / "build" / "native"
+    before = {p.name: p.stat().st_mtime_ns
+              for p in (ROOT / "native").iterdir()}
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "native_build")
+    monkeypatch.setattr(native, "LIB", tmp_path / "native_build" / "lib.so")
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    assert native.available(), native.load_error()
+    assert (tmp_path / "native_build" / "lib.so").exists()
+    after = {p.name: p.stat().st_mtime_ns
+             for p in (ROOT / "native").iterdir()}
+    assert after == before

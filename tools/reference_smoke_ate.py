@@ -28,8 +28,36 @@ deterministic; flushed with finish()): the gates of chip_smoke.py's
 rt-vo-512 and rt-vio-512 phases. Its VIO runs print the ATE after the last
 frame only: scoring a realtime run mid-way flushes its pipeline.
 
+`--cli` runs the JAX CLI (dmvio_tpu.run_dataset, in-process) on the
+dataset that chip_smoke.py's cli-vio-512 phase writes: the JAX
+make_synthetic at w=512 h=512 photometric=1 with the phase's seed (written
+to build/cli_ref_data/), read with the phase's arguments (useimu=1
+preset=0 nativeLoader=1, gammaCalib= and vignette=, nogui=1 since the
+viewers do not change the estimate). Three runs: clean, and with 1e-2
+intensity noise (numpy seeds 1 and 2) added to every loaded frame. Each
+prints the frame at which the IMU turned ACTIVE, the frame that completed
+the first PGBA cycle, and, at every frame count from `--from` on, the sim3
+ATE of trajectory() and the se3 ATE of metric_trajectory() against the
+ground truth over all frames (what result.txt and resultScaled.txt give
+against gt.csv), with the path length. The phase's frame count is the
+smallest at which every run is ACTIVE with a PGBA cycle done; its gates
+are max(the CLI test suite's share of path, 1.5x the worst of the runs).
+
+`--cli-rt7` runs the JAX CLI the same way (clean and the two noise seeds)
+on the files of tests/test_torch_cli_vio_rt.py: the PORT's make_synthetic
+(on the CPU) at its defaults with seed 7 (256x320, 60 frames;
+build/cli_ref_rt7/), so the reference reads the very files the port's
+test reads, with useimu=1 preset=1 (realtime) async_fetch=0, as the
+reference's own test_cli_vio_realtime_second_seed runs it; each run prints
+the sim3 ATE of result.txt and the se3 ATE of resultScaled.txt against
+gt.csv after the last frame, with the path length. The port's test gates
+are max(that test's gates, 1.5x the worst of these runs).
+
     python tools/reference_smoke_ate.py [--rt] [n_frames]
     python tools/reference_smoke_ate.py [--rt] --vio [n_frames] [--from N]
+    python tools/reference_smoke_ate.py --cli [n_frames] [--from N]
+        [--noise K]     (one run: K = 0 clean, or a noise seed)
+    python tools/reference_smoke_ate.py --cli-rt7 [--noise K]
 """
 
 import json
@@ -168,8 +196,114 @@ def run_vio(n, n_from, noise_seed, rt):
         flush=True)
 
 
+# chip_smoke.py's cli-vio-512 phase: make_synthetic's arguments (its seed
+# is used by no other phase) and the CLI's.
+CLI_SYNTH = ["w=512", "h=512", "photometric=1", "seed=4"]
+CLI_ARGS = ["useimu=1", "preset=0", "nativeLoader=1", "quiet=1"]
+# tests/test_torch_cli_vio_rt.py's run (the reference's second-seed test).
+RT7_SYNTH = ["seed=7"]
+RT7_ARGS = ["useimu=1", "preset=1", "quiet=1", "async_fetch=0"]
+
+
+def run_cli(n, n_from, noise_seed, rt7=False):
+    from dmvio_tpu import run_dataset
+    from dmvio_tpu.io import dataset as ds
+    from dmvio_tpu.tools import make_synthetic
+
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build", "cli_ref_rt7" if rt7 else "cli_ref_data")
+    if not os.path.exists(os.path.join(data, "meta.npz")):
+        if rt7:
+            from dmvio_tpu_torch.tools import make_synthetic as port_synth
+
+            port_synth.main([f"out={data}", *RT7_SYNTH, "device=cpu"])
+        else:
+            make_synthetic.main([f"out={data}", f"n={n}", *CLI_SYNTH])
+    gt = trajectory.read_tum(os.path.join(data, "gt.csv"))
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    get_image = ds.DatasetReader.get_image
+    add_frame = full_system.FullSystem.add_frame
+    rec = {"active_at": None, "pgba_at": None, "ates": {}}
+
+    def noisy_get_image(self, i):
+        img = get_image(self, i)
+        if rng is not None:
+            img = img + jnp.asarray(rng.normal(0, 1e-2, img.shape),
+                                    jnp.float32)
+        return img
+
+    def scored_add_frame(self, *a, **k):
+        add_frame(self, *a, **k)
+        if rt7:
+            return      # scoring a realtime run mid-way flushes it
+        i = len(self.shells) - 1
+        if rec["active_at"] is None and self.imu.phase == imu_system.ACTIVE:
+            rec["active_at"] = i
+        if rec["pgba_at"] is None \
+                and getattr(self.imu, "pgba_count", 0) >= 1:
+            rec["pgba_at"] = i
+        if i + 1 >= n_from and self.imu.phase == imu_system.ACTIVE:
+            m = i + 1
+            dist = float(np.sum(np.linalg.norm(np.diff(
+                np.stack([g[2] for g in gt[:m]]), axis=0), axis=1)))
+            rec["ates"][m] = {
+                "sim3": trajectory.ate_rmse(self.trajectory(), gt[:m]),
+                "se3": trajectory.ate_rmse(self.metric_trajectory(), gt[:m],
+                                           with_scale=False),
+                "dist": dist}
+
+    ds.DatasetReader.get_image = noisy_get_image
+    full_system.FullSystem.add_frame = scored_add_frame
+    t0 = time.perf_counter()
+    try:
+        out = os.path.join(data, f"out_noise{noise_seed}_")
+        args = [f"files={data}/images", f"calib={data}/camera.txt",
+                f"tsFile={data}/times.txt", f"imuFile={data}/imu.txt",
+                f"resultsPrefix={out}"]
+        if rt7:
+            args += RT7_ARGS
+        else:
+            args += [f"gammaCalib={data}/pcalib.txt",
+                     f"vignette={data}/vignette.png", f"maxFrames={n}",
+                     *CLI_ARGS]
+        summary = run_dataset.run(args)
+    finally:
+        ds.DatasetReader.get_image = get_image
+        full_system.FullSystem.add_frame = add_frame
+    est = trajectory.read_tum(out + "result.txt")
+    est_s = trajectory.read_tum(out + "resultScaled.txt")
+    print(json.dumps({
+        "cli": "rt7" if rt7 else "smoke", "frames": summary["frames"],
+        "noise_seed": noise_seed,
+        "sim3_result": trajectory.ate_rmse(est, gt[:len(est)]),
+        "se3_result_scaled": trajectory.ate_rmse(est_s, gt[:len(est_s)],
+                                                 with_scale=False),
+        "path_length": float(np.sum(np.linalg.norm(np.diff(np.stack(
+            [g[2] for g in gt[:len(est)]]), axis=0), axis=1))),
+        "active_at": rec["active_at"], "pgba_at": rec["pgba_at"],
+        "keyframes": summary["keyframes"],
+        "wall_s_cpu": time.perf_counter() - t0, "ate_by_frames": rec["ates"]}),
+        flush=True)
+
+
 def main():
     args = sys.argv[1:]
+    if args and args[0] in ("--cli", "--cli-rt7"):
+        rt7 = args[0] == "--cli-rt7"
+        args = args[1:]
+        n_from = 0
+        if "--from" in args:
+            k = args.index("--from")
+            n_from = int(args[k + 1])
+            del args[k:k + 2]
+        seeds = NOISE_SEEDS
+        if "--noise" in args:
+            k = args.index("--noise")
+            seeds = [None if int(args[k + 1]) == 0 else int(args[k + 1])]
+            del args[k:k + 2]
+        for seed in seeds:
+            run_cli(int(args[0]) if args else 90, n_from, seed, rt7)
+        return
     rt = "--rt" in args
     if rt:
         args.remove("--rt")
