@@ -44,7 +44,19 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
     attached; check every output file, the health counters and the ATE of
     result.txt (sim3) and resultScaled.txt (se3) against gt.csv, and print
     frames/s, the loader's time per frame and K1's launches on this path;
- 8. print the `kernels` JSON line, the card line, and last the result line.
+ 8. drive the sharded window BA (mesh-512) on the one card: at the
+    reference's operating shape (synthetic.tiny_ba_problem at P=2048,
+    F=8, 512x512) the visual BA, the extended VIO BA, the fused VIO tail
+    and the point marginalization over an 8-shard one-card
+    dist_ba.Placer, each held against the single dispatch, with the
+    ms per BA call of both; K1 timed at the shard shape (T=8, N=256) and
+    the big window's (T=12, N=512); one sharded BA inside a one-rank
+    NCCL process group (parallel/dist_init) held bit for bit against the
+    same BA without a group; then the big sharded window of
+    tests/test_dist_window_scale.py (256x320, 56 frames, F=12, P=4096)
+    through FullSystem.add_frame with an 8-shard placer, its health and
+    sim3 ATE gated, K1's launches counted on this path;
+ 9. print the `kernels` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -69,9 +81,11 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import dmvio_tpu_torch  # noqa: E402  (fails outside a checkout)
 from dmvio_tpu_torch import kernels, run_dataset  # noqa: E402
 from dmvio_tpu_torch.io import native  # noqa: E402
-from dmvio_tpu_torch.models import full_system, imu_system  # noqa: E402
-from dmvio_tpu_torch.models import window  # noqa: E402
-from dmvio_tpu_torch.ops import patch_sample, pyramid, select  # noqa: E402
+from dmvio_tpu_torch.models import ba, full_system, imu_system  # noqa: E402
+from dmvio_tpu_torch.models import vio_ba, window  # noqa: E402
+from dmvio_tpu_torch.ops import patch_sample, preint, pyramid  # noqa: E402
+from dmvio_tpu_torch.ops import select  # noqa: E402
+from dmvio_tpu_torch.parallel import dist_ba, dist_init  # noqa: E402
 from dmvio_tpu_torch.tools import make_synthetic  # noqa: E402
 from dmvio_tpu_torch.utils import lie, synthetic, timing  # noqa: E402
 from dmvio_tpu_torch.utils import trajectory  # noqa: E402
@@ -144,6 +158,24 @@ CLI_FILES = ("result.txt", "resultKFs.txt", "resultScaled.txt",
              "timings.txt", "usedSettings.txt", "scalesdso.txt",
              "babiasdso.txt", "bavel.txt", "bagravdir.txt",
              os.path.join("viz", "index.html"))
+# mesh-512 phase: the sharded programs at the reference operating shape
+# (tests/test_dist_opshape.py, slow in the JAX package, so this is where
+# it runs) over MESH_SHARDS shards of the one card, with that test's
+# tolerances; and the big sharded window of tests/test_dist_window_scale.py
+# through FullSystem, gated at max(0.04 dist + 0.01, 1.5x the worst of
+# three JAX runs of `tools/reference_smoke_ate.py --mesh`).
+MESH_SHARDS = 8
+OP_SHAPE = dict(P=2048, F=8, H=512, W=512)
+MESH_HW = (256, 320)
+MESH_FRAMES = 56
+MESH_SEQ = dict(frame_dt=0.05, s_dso=1.4, g2=(0.06, -0.04), accel_scale=0.5,
+                rot_scale=0.3, seed=3)
+MESH_CFG = dict(f_max=12, p_max=4096, i_max=2048, max_frames=11, levels=5,
+                ba_iters=4)
+# `tools/reference_smoke_ate.py --mesh`: clean / noise 1 / noise 2 read
+# sim3 0.00455 / 0.01552 / 0.01408 m over 1.2309 m, each ACTIVE with 11
+# occupied slots and 17 keyframes.
+REF_MESH_SIM3 = 0.015519969965480829
 ATOL = 1e-4            # on 0-255 intensities: a few f32 ulps at 255
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
@@ -223,21 +255,23 @@ def call_ms(fn, reps: int = 25) -> float:
 # ---------------------------------------------------------------------------
 
 
-def k1_window(dev):
-    """T=8 window frames of the smoke sequence as the [F, 3, H, W] stack,
-    with the scene, calibration and poses that made them."""
-    calib = Calib.create(380.0, 380.0, W / 2 - 0.5, H / 2 - 0.5, dev)
+def k1_window(dev, T: int = 8, h: int = H, w: int = W):
+    """T window frames of the smoke sequence as the [T, 3, h, w] stack,
+    with the scene, calibration (focal length scaled with the width) and
+    poses that made them."""
+    f = 380.0 * w / W
+    calib = Calib.create(f, f, w / 2 - 0.5, h / 2 - 0.5, dev)
     scene = synthetic.default_scene(2.0, device=dev)
-    poses = [tuple(x.to(dev) for x in pose(2 * i)) for i in range(8)]
+    poses = [tuple(x.to(dev) for x in pose(2 * i)) for i in range(T)]
     stack = torch.stack([pyramid.build_pyramid(
-        synthetic.render(scene, R, t, calib, H, W), levels=1)[0]
-        for R, t in poses])                                  # [T, 3, H, W]
+        synthetic.render(scene, R, t, calib, h, w), levels=1)[0]
+        for R, t in poses])                                  # [T, 3, h, w]
     return scene, calib, poses, stack
 
 
 def k1_points(win, N: int):
     """N points selected in frame 0 of the window with ground-truth inverse
-    depth, their pattern pixels warped into every frame: u, v [8, N, 8]."""
+    depth, their pattern pixels warped into every frame: u, v [T, N, 8]."""
     scene, calib, poses, stack = win
     dev = stack.device
     sel = select.select_points(stack[0], N, pot=4)
@@ -851,10 +885,317 @@ def phase_cli(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Sharded window BA (mesh-512)
+# ---------------------------------------------------------------------------
+
+
+def mesh_placer(dev):
+    """MESH_SHARDS shards of the point axis, all on the one card."""
+    return dist_ba.Placer([dev] * MESH_SHARDS, home=dev)
+
+
+def op_vio_problem(problem):
+    """tests/test_dist_opshape.py's extended problem around a visual one:
+    a constant velocity, F-1 identity preintegrations of 0.15 s with
+    1e-4 covariance between consecutive slots, the visual priors."""
+    dev = problem.calib0.device
+    F = problem.frames.mask.shape[0]
+    C = vio_ba.cdim_ext(F)
+    z3 = torch.zeros(F, 3, device=dev)
+    vel = torch.tensor([0.1, -0.05, 0.02], device=dev).expand(F, 3) \
+        .contiguous()
+    zero = torch.zeros((), device=dev)
+    states = vio_ba.VIOStates(v=vel, bg=z3, ba=z3, v0=vel, bg0=z3, ba0=z3,
+                              s_log=zero, g2=torch.zeros(2, device=dev),
+                              s_log0=zero, g20=torch.zeros(2, device=dev))
+    Q = F - 1
+    pre = preint.identity_preint(torch.zeros(6, device=dev))._replace(
+        dt=torch.tensor(0.15, device=dev),
+        cov=torch.eye(9, device=dev) * 1e-4)
+    pre_b = preint.PreintState(*(torch.stack([x] * Q) for x in pre))
+    pairs = vio_ba.IMUPairs(pre=pre_b, i=torch.arange(Q, device=dev),
+                            j=torch.arange(1, Q + 1, device=dev),
+                            valid=torch.ones(Q, dtype=torch.bool,
+                                             device=dev))
+    prior = torch.zeros(C, device=dev)
+    prior[:problem.prior_diag.shape[0]] = problem.prior_diag
+    return vio_ba.VIOProblem(
+        base=problem, states=states, pairs=pairs,
+        HM=torch.zeros(C, C, device=dev), bM0=torch.zeros(C, device=dev),
+        prior_diag=prior, R_cb=torch.eye(3, device=dev),
+        t_cb=torch.zeros(3, device=dev), imu_on=True)
+
+
+def close(label, got, want, rtol=0.0, atol=0.0, rel_max=0.0):
+    """Raise unless |got - want| <= atol + rtol |want| + rel_max max|want|
+    everywhere; returns the largest |got - want|."""
+    got, want = got.double(), want.double()
+    tol = atol + rtol * want.abs() + rel_max * float(want.abs().max())
+    err = (got - want).abs()
+    if not bool(torch.all(err <= tol)):
+        raise AssertionError(f"mesh-512 {label}: max error "
+                             f"{float(err.max())} beyond rtol {rtol} atol "
+                             f"{atol} rel_max {rel_max}")
+    return float(err.max())
+
+
+def equal(label, got, want):
+    if not torch.equal(got, want):
+        raise AssertionError(f"mesh-512 {label}: differs")
+
+
+def tensors(tree):
+    """The tensors of nested NamedTuples, tuples and Calibs, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, Calib):
+        return [tree.fx, tree.fy, tree.cx, tree.cy]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in tensors(x)]
+    return []
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median wall time of one synchronized call of `fn` (host included)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def k1_at(dev, T, N, h, w):
+    """K1 against its plain version, its time and its bound at [T, N, 8]."""
+    win = k1_window(dev, T, h, w)
+    img = win[3][:, 0]
+    u, v = k1_points(win, N)
+    err = compare_k1(img, u, v, f"shard shape T={T} N={N} K=8 ({h}x{w})")
+    ms = device_ms(lambda: patch_sample.sample_patch3(img, u, v))
+    bound_ms, bound_by, nbytes = k1_bound(img, u, v)
+    return {"T": T, "N": N, "K": 8, "h": h, "w": w, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "bound_share": bound_ms / ms, "max_abs_err": err}
+
+
+def nccl_check() -> int:
+    """`chip_smoke.py --nccl-check`, run by nccl_one_rank in a child
+    process: one sharded BA at the operating shape without a process
+    group, then the same inside a one-rank NCCL group entered through
+    dist_init with explicit arguments (the placer then sums and gathers
+    with NCCL's all_reduce / all_gather). They must agree bit for bit.
+    Prints one JSON line; exits 1 on a mismatch or another backend."""
+    import socket
+
+    dev = dmvio_tpu_torch.device()
+    kernels.build(["patch_sample"])
+    problem, images = synthetic.tiny_ba_problem(device=dev, **OP_SHAPE)
+
+    def run():
+        placer = mesh_placer(dev)
+        out = placer.gather(ba.optimize(placer.place_ba(problem),
+                                        placer.place_images(images),
+                                        max_iters=2))
+        torch.cuda.synchronize()
+        return placer._group, out
+
+    _, want = run()
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist_init.maybe_initialize(coordinator=f"localhost:{port}",
+                               num_processes=1, process_id=0, device=dev)
+    try:
+        in_group, got = run()
+        backend = torch.distributed.get_backend()
+    finally:
+        dist_init.shutdown()
+    same = in_group and all(torch.equal(a, b) for a, b in
+                            zip(tensors(got), tensors(want)))
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    print(json.dumps({"nccl": "one-rank group", "backend": backend,
+                      "placer_in_group": in_group, "bit_identical": same}))
+    return 0 if same and backend == want_backend else 1
+
+
+def nccl_one_rank(timeout_s: int = 240) -> dict:
+    """Run nccl_check in a child process (an NCCL rendezvous that hangs
+    must not hang the smoke) and hold it to its result: a timeout, a
+    non-zero exit, a missing result line or a disagreement fails the
+    phase."""
+    try:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--nccl-check"], capture_output=True, text=True,
+                           timeout=timeout_s, cwd=ROOT)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(
+            f"mesh-512 NCCL: no result within {timeout_s} s") from None
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if r.returncode == 0 and lines:
+        return json.loads(lines[-1])
+    if lines:       # it ran and disagreed
+        raise AssertionError(f"mesh-512 NCCL: {lines[-1]}")
+    err = "\n".join(r.stderr.strip().splitlines()[-5:]) or "no output"
+    raise AssertionError(f"mesh-512 NCCL: the one-rank group exited "
+                         f"{r.returncode} with no result line: {err}")
+
+
+def phase_mesh_opshape(dev):
+    """The sharded programs at the reference operating shape against the
+    single dispatch (tests/test_dist_opshape.py's tolerances), their ms
+    per call, K1 at the shard shapes and the one-rank NCCL group."""
+    problem, images = synthetic.tiny_ba_problem(device=dev, **OP_SHAPE)
+    F = OP_SHAPE["F"]
+    placer = mesh_placer(dev)
+
+    def single():
+        return ba.optimize(problem, images, max_iters=2)
+
+    def sharded():
+        return placer.gather(ba.optimize(placer.place_ba(problem),
+                                         placer.place_images(images),
+                                         max_iters=2))
+    r1, rm = single(), sharded()
+    err = {"ba_energy": close("BA energy", rm.energy, r1.energy, rtol=1e-3),
+           "ba_t_cw": close("BA t_cw", rm.frames.t_cw, r1.frames.t_cw,
+                            atol=1e-4),
+           "ba_idepth": close("BA idepth", rm.points.idepth,
+                              r1.points.idepth, rtol=5e-3, atol=1e-4)}
+    vp = op_vio_problem(problem)
+    v1 = vio_ba.optimize(vp, images, max_iters=2)
+    vm = placer.gather(vio_ba.optimize(placer.place_vio(vp),
+                                       placer.place_images(images),
+                                       max_iters=2))
+    err.update(
+        vio_energy=close("VIO energy", vm.energy, v1.energy, rtol=1e-3),
+        vio_t_cw=close("VIO t_cw", vm.frames.t_cw, v1.frames.t_cw,
+                       atol=1e-4),
+        vio_s_log=close("VIO s_log", vm.states.s_log, v1.states.s_log,
+                        atol=1e-3),
+        vio_idepth=close("VIO idepth", vm.points.idepth, v1.points.idepth,
+                         rtol=5e-3, atol=1e-4))
+    age = torch.arange(F, dtype=torch.int32, device=dev)
+    t1 = vio_ba.vio_marg_fused(vp, images, age, 1, F - 1)
+    tm = placer.gather(vio_ba.vio_marg_fused(
+        placer.place_vio(vp), placer.place_images(images), age, 1, F - 1))
+    equal("tail victims", tm[0], t1[0])
+    equal("tail point mask", tm[5].mask, t1[5].mask)
+    equal("tail pair mask", tm[6], t1[6])
+    for k, name in ((1, "tail HM_add"), (2, "tail bM_add"),
+                    (3, "tail fold_H"), (4, "tail fold_b")):
+        err[name] = close(name, tm[k], t1[k], rel_max=1e-4)
+    h1 = ba.marginalization_update(problem, images, problem.points.mask)
+    hm = placer.gather(ba.marginalization_update(
+        placer.place_ba(problem), placer.place_images(images),
+        placer.point_sharded(problem.points.mask)))
+    err["point_marg_H"] = close("point marg H", hm[0], h1[0], rel_max=1e-4)
+    err["point_marg_b"] = close("point marg b", hm[1], h1[1], rel_max=1e-4)
+    timing_ms = {
+        "ba_single": host_ms(single), "ba_sharded": host_ms(sharded),
+        "vio_ba_single": host_ms(
+            lambda: vio_ba.optimize(vp, images, max_iters=2)),
+        "vio_ba_sharded": host_ms(lambda: placer.gather(vio_ba.optimize(
+            placer.place_vio(vp), placer.place_images(images),
+            max_iters=2)))}
+    k1_shapes = [k1_at(dev, 8, OP_SHAPE["P"] // MESH_SHARDS, H, W),
+                 k1_at(dev, MESH_CFG["f_max"],
+                       MESH_CFG["p_max"] // MESH_SHARDS, *MESH_HW)]
+    nccl = nccl_one_rank()
+    out = {"shape": OP_SHAPE, "shards": MESH_SHARDS, "max_errors": err,
+           "iters_single_sharded": [int(r1.iters), int(rm.iters)],
+           "ms_per_call_max_iters_2": timing_ms, "k1_shard_shapes": k1_shapes,
+           **nccl}
+    log("mesh-512 op shape: " + json.dumps(out))
+    return out
+
+
+def phase_mesh_window(dev):
+    """The big sharded window through FullSystem.add_frame with an
+    8-shard one-card placer; K1's count and the stage timers set to 0
+    just before."""
+    h, w = MESH_HW
+    seq = synthetic.generate_vio_sequence(
+        n_frames=MESH_FRAMES, h=h, w=w,
+        scene=synthetic.default_scene(2.0, device=dev), **MESH_SEQ)
+    spf = seq["steps_per_frame"]
+    fs = full_system.FullSystem(seq["calib"], h, w,
+                                window.Config(**MESH_CFG),
+                                imu_calib=imu_system.IMUCalib())
+    fs.placer = mesh_placer(dev)
+    torch.cuda.synchronize()
+    timing.reset()
+    patch_sample.sample_patch3.launches = 0
+    t0 = time.perf_counter()
+    for i in range(MESH_FRAMES):
+        chunk = None
+        if i > 0:
+            s0, s1 = (i - 1) * spf, i * spf
+            chunk = (seq["acc"][s0:s1], seq["gyr"][s0:s1],
+                     np.full(s1 - s0, seq["imu_dt"], np.float32))
+        fs.add_frame(seq["images"][i], float(seq["timestamps"][i]),
+                     imu_data=chunk)
+    fs.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = patch_sample.sample_patch3.launches
+
+    est = fs.trajectory()
+    gt = []
+    for i in range(MESH_FRAMES):
+        R_dso = seq["R_dso"][i].cpu().numpy()
+        t_dso = seq["t_dso"][i].cpu().numpy()
+        gt.append((float(seq["timestamps"][i]), R_dso.T, -R_dso.T @ t_dso))
+    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
+                 for p in est)
+    first_kf = min(fs.kf_poses.keys())
+    est_t = [e for e, sh in zip(est, fs.shells)
+             if sh.frame_id >= first_kf + 5]
+    gt_t = [g for g, sh in zip(gt, fs.shells)
+            if sh.frame_id >= first_kf + 5]
+    sim3 = trajectory.ate_rmse(est_t, gt_t, with_scale=True)
+    dist = trajectory.path_length(np.stack([g[2] for g in gt_t]))
+    gate = max(0.04 * dist + 0.01, 1.5 * REF_MESH_SIM3)
+    occupied = sum(1 for f in fs.win.slot_frame_id if f is not None)
+    stats = timing.get_stats()
+    summary = {
+        "frames": MESH_FRAMES, "hw": MESH_HW, "config": MESH_CFG,
+        "shards": MESH_SHARDS, "keyframes": fs.stats_kf,
+        "occupied_slots": occupied, "resets": fs.stats_resets,
+        "lost_frames": fs.stats_lost_frames, "imu_phase": fs.imu.phase,
+        "wall_s": wall, "fps": MESH_FRAMES / wall, "ate_sim3": sim3,
+        "path_length": dist, "gate_sim3": gate, "k1_launches": launches,
+        "stage_median_ms": {k: v["median"] * 1e3 for k, v in stats.items()},
+        "stage_calls_total_s": {k: [v["n"], v["n"] * v["mean"]]
+                                for k, v in stats.items()}}
+    log("mesh-512 big window: " + json.dumps(summary))
+    checks = [
+        (fs.initialized, "not initialized"),
+        (fs.stats_resets == 0, f"{fs.stats_resets} resets"),
+        (fs.stats_lost_frames <= 2, f"{fs.stats_lost_frames} lost frames"),
+        (fs.imu.phase == imu_system.ACTIVE, f"IMU phase {fs.imu.phase}"),
+        (occupied >= 9, f"only {occupied} occupied slots"),
+        (finite, "non-finite pose in the trajectory"),
+        (launches > 0, "K1 was never launched on the mesh path"),
+        (math.isfinite(sim3) and sim3 < gate,
+         f"sim3 ATE {sim3} >= gate {gate}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError("mesh-512 big window: " + msg)
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--nccl-check"]:
+        return nccl_check()
     dev = dmvio_tpu_torch.device()
     card = card_line()
     log(f"card: {card}")
@@ -879,15 +1220,20 @@ def main() -> int:
     k1["launches_rt_vo_path"] = phase_rt_vo(dev)
     k1["launches_rt_vio_path"] = phase_rt_vio(dev)
     k1["launches_cli_path"] = phase_cli(dev)
+    mesh_op = phase_mesh_opshape(dev)
+    k1["shard_shapes"] = mesh_op["k1_shard_shapes"]
+    k1["launches_mesh_path"], _ = phase_mesh_window(dev)
     log(f"K1 launches: VO path {k1['launches_main_path']}, VIO path "
         f"{k1['launches_vio_path']}, realtime VO path "
         f"{k1['launches_rt_vo_path']}, realtime VIO path "
         f"{k1['launches_rt_vio_path']}, CLI path "
-        f"{k1['launches_cli_path']}")
+        f"{k1['launches_cli_path']}, mesh path "
+        f"{k1['launches_mesh_path']}")
     k1["launches"] = (k1["launches_main_path"] + k1["launches_vio_path"]
                       + k1["launches_rt_vo_path"]
                       + k1["launches_rt_vio_path"]
-                      + k1["launches_cli_path"])
+                      + k1["launches_cli_path"]
+                      + k1["launches_mesh_path"])
     print(json.dumps({"kernels": [k1]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

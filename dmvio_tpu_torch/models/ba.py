@@ -18,6 +18,7 @@ import torch
 from dmvio_tpu_torch.models import window_ops
 from dmvio_tpu_torch.ops import ba_solve, residuals
 from dmvio_tpu_torch.ops.residuals import BAFrames, BAPoints, OUTLIER_TH
+from dmvio_tpu_torch.parallel import dist_ba
 from dmvio_tpu_torch.utils import lie
 from dmvio_tpu_torch.utils.camera import Calib, PATTERN_NUM
 
@@ -61,11 +62,16 @@ class BAResult(NamedTuple):
     frame_th: torch.Tensor       # [F] adaptive per-frame energy threshold
 
 
-def frame_energy_th(pair_energy: torch.Tensor,
-                    pair_ok: torch.Tensor) -> torch.Tensor:
+def frame_energy_th(pair_energy, pair_ok) -> torch.Tensor:
     """Per-frame adaptive outlier threshold (setNewFrameEnergyTH): the
     0.7-quantile pair energy, blended with a constant floor and capped;
-    12^2 * patternNum for frames without active pairs."""
+    12^2 * patternNum for frames without active pairs.
+
+    A quantile over the point axis is no sum of partials: sharded inputs
+    (dist_ba.Placed [F, P/n] parts) are gathered whole first, so the
+    threshold is the single-device one exactly."""
+    pair_energy = _whole(pair_energy, 1)
+    pair_ok = _whole(pair_ok, 1)
     F, P = pair_energy.shape
     e = torch.where(pair_ok, pair_energy,
                     torch.full_like(pair_energy, float("inf")))
@@ -82,12 +88,17 @@ def frame_energy_th(pair_energy: torch.Tensor,
                        torch.full_like(th, OUTLIER_TH * PATTERN_NUM))
 
 
+def _whole(x, dim: int):
+    """A Placed per-point value gathered whole; a plain tensor as it is."""
+    parts, shards = dist_ba.unplace(x)
+    return shards.gather_points(parts, dim)
+
+
 def _prior_energy(delta, HM, bM0, prior_diag):
     return delta @ (2.0 * bM0 + HM @ delta) + delta @ (prior_diag * delta)
 
 
-def _apply_step(frames: BAFrames, points: BAPoints, calib: Calib,
-                dx, dxd, F: int):
+def _apply_step(frames: BAFrames, calib: Calib, dx, F: int):
     cal_new = Calib.from_vec(calib.as_vec() + dx[:4])
     fsteps = dx[4:].reshape(F, 8)
     R_new, t_new = lie.se3_retract(frames.R_cw, frames.t_cw, fsteps[:, :6])
@@ -96,18 +107,60 @@ def _apply_step(frames: BAFrames, points: BAPoints, calib: Calib,
                                        torch.zeros_like(fsteps[:, 6:8]))
     R_new = torch.where(m[:, None, None], R_new, frames.R_cw)
     t_new = torch.where(m[:, None], t_new, frames.t_cw)
+    return frames._replace(R_cw=R_new, t_cw=t_new, aff=aff_new), cal_new
+
+
+def _step_points(points: BAPoints, dxd) -> BAPoints:
+    """One shard's idepth step, clamped; inactive points keep theirs."""
     id_new = torch.clamp(points.idepth + dxd, MIN_IDEPTH, MAX_IDEPTH)
-    id_new = torch.where(points.mask, id_new, points.idepth)
-    return (frames._replace(R_cw=R_new, t_cw=t_new, aff=aff_new),
-            points._replace(idepth=id_new), cal_new)
+    return points._replace(
+        idepth=torch.where(points.mask, id_new, points.idepth))
 
 
 def _select(accept, new, old):
-    """Per-field torch.where(accept, new, old) over NamedTuples/Calib."""
+    """torch.where(accept, new, old) over every tensor of nested
+    NamedTuples, tuples (per-shard parts) and Calibs; `accept` follows
+    each tensor to its shard's device."""
+    if isinstance(new, torch.Tensor):
+        if accept.device != new.device:
+            accept = accept.to(new.device)
+        return torch.where(accept, new, old)
     if isinstance(new, Calib):
         return Calib(*(torch.where(accept, getattr(new, f), getattr(old, f))
                        for f in ("fx", "fy", "cx", "cy")))
-    return type(new)(*(torch.where(accept, a, b) for a, b in zip(new, old)))
+    if hasattr(new, "_fields"):
+        return type(new)(*(_select(accept, a, b) for a, b in zip(new, old)))
+    return tuple(_select(accept, a, b) for a, b in zip(new, old))
+
+
+class _Shards:
+    """A window problem's per-shard view: `parts` (one problem per local
+    shard, its frame-sized leaves replicated on the shard's device),
+    `images` per shard, and the placer that sums and gathers across
+    them (dist_ba.ONE for the unsharded call). parts[0] lives on the
+    device where the camera-sized work runs."""
+
+    def __init__(self, problem, images):
+        self.parts, self.sh = dist_ba.unplace(problem)
+        self.images = dist_ba.parts_of(images, self.sh)
+
+    def linearize(self, frames, points, calib, geos=None):
+        fr, ca = self.sh.copies(frames), self.sh.copies(calib)
+        return [residuals.linearize(
+                    fr[k], points[k], ca[k], self.images[k], p.pair_mask,
+                    geo=None if geos is None else geos[k])
+                for k, p in enumerate(self.parts)]
+
+    def sum(self, xs):
+        """Shard sum of per-shard scalars or camera-sized tensors."""
+        return self.sh.reduce(list(xs))
+
+    def whole(self, xs, dim: int = 0):
+        """Per-point parts gathered whole."""
+        return self.sh.gather_points(list(xs), dim)
+
+    def whole_points(self, points) -> BAPoints:
+        return BAPoints(*(self.whole(f) for f in zip(*points)))
 
 
 def optimize(problem: BAProblem, images: torch.Tensor,
@@ -117,53 +170,62 @@ def optimize(problem: BAProblem, images: torch.Tensor,
 
     images [F, 3, H, W]: level-0 pyramids of the window frames.
     orthogonalize: project gauge directions out of each step (leave False
-    when the gauge is pinned by priors, the default window setup)."""
-    F = problem.frames.mask.shape[0]
-    N_null = ba_solve.nullspaces(problem.frames, F) if orthogonalize \
+    when the gauge is pinned by priors, the default window setup).
+    `problem` and `images` may be placed by a dist_ba.Placer: the point
+    axis then runs per shard and the result comes back whole."""
+    S = _Shards(problem, images)
+    base = S.parts[0]
+    F = base.frames.mask.shape[0]
+    N_null = ba_solve.nullspaces(base.frames, F) if orthogonalize \
         else None
-    geo = residuals.fej_geometry(problem.frames, problem.points,
-                                 problem.calib)
+    geos = [residuals.fej_geometry(p.frames, p.points, p.calib)
+            for p in S.parts]
 
     def lin_at(frames, points, calib):
-        return residuals.linearize(frames, points, calib, images,
-                                   problem.pair_mask, geo=geo)
+        return S.linearize(frames, points, calib, geos)
 
-    def total_energy(frames, calib, lin):
-        delta = ba_solve.state_delta(frames, calib, problem.calib0)
-        return torch.sum(lin.energy) + _prior_energy(
-            delta, problem.HM, problem.bM0, problem.prior_diag)
+    def total_energy(frames, calib, e_photo):
+        delta = ba_solve.state_delta(frames, calib, base.calib0)
+        return e_photo + _prior_energy(
+            delta, base.HM, base.bM0, base.prior_diag)
 
-    frames, points, calib = problem.frames, problem.points, problem.calib
+    frames, calib = base.frames, base.calib
+    points = tuple(p.points for p in S.parts)
+    pmasks = tuple(p.mask for p in points)
     lin0 = lin_at(frames, points, calib)
-    energy = total_energy(frames, calib, lin0)
-    photo_energy = torch.sum(lin0.energy)
-    sys = ba_solve.accumulate(lin0, points.host, F)
+    photo_energy = S.sum(torch.sum(ln.energy) for ln in lin0)
+    energy = total_energy(frames, calib, photo_energy)
+    sys = ba_solve.accumulate_shards(lin0, [p.host for p in points], F,
+                                     S.sh)
     lam = torch.tensor(1e-4, device=energy.device)
-    n_pts = torch.clamp(torch.sum(points.mask.to(torch.float32)), min=1.0)
+    n_pts = torch.clamp(S.sum(torch.sum(m.to(torch.float32))
+                              for m in pmasks), min=1.0)
     it = 0
     while it < max_iters:
-        delta = ba_solve.state_delta(frames, calib, problem.calib0)
-        bM_eff = problem.bM0 + problem.HM @ delta
-        b_prior = problem.prior_diag * delta
+        delta = ba_solve.state_delta(frames, calib, base.calib0)
+        bM_eff = base.bM0 + base.HM @ delta
+        b_prior = base.prior_diag * delta
         dx, dxd = ba_solve.solve_levenberg(
-            sys, problem.HM, bM_eff, problem.prior_diag, b_prior, lam,
-            frames.mask, points.mask, N_null)
-        frames_n, points_n, calib_n = _apply_step(frames, points, calib,
-                                                  dx, dxd, F)
+            sys, base.HM, bM_eff, base.prior_diag, b_prior, lam,
+            frames.mask, pmasks, N_null, shards=S.sh)
+        frames_n, calib_n = _apply_step(frames, calib, dx, F)
+        points_n = tuple(_step_points(p, d) for p, d in zip(points, dxd))
         lin_n = lin_at(frames_n, points_n, calib_n)
-        e_n = total_energy(frames_n, calib_n, lin_n)
+        photo_n = S.sum(torch.sum(ln.energy) for ln in lin_n)
+        e_n = total_energy(frames_n, calib_n, photo_n)
         accept = (e_n < energy) & torch.isfinite(e_n)
-        step_sq = torch.sum(dx * dx) + torch.sum(dxd * dxd) / n_pts
+        step_sq = torch.sum(dx * dx) \
+            + S.sum(torch.sum(d * d) for d in dxd) / n_pts
         rel_impr = (energy - e_n) / torch.clamp(energy, min=1e-12)
         converged = (step_sq < 1e-10) | (torch.abs(rel_impr) < 2e-4)
-        sys_n = ba_solve.accumulate(lin_n, points_n.host, F)
+        sys_n = ba_solve.accumulate_shards(
+            lin_n, [p.host for p in points_n], F, S.sh)
         frames = _select(accept, frames_n, frames)
         points = _select(accept, points_n, points)
         calib = _select(accept, calib_n, calib)
         sys = _select(accept, sys_n, sys)
         energy = torch.where(accept, e_n, energy)
-        photo_energy = torch.where(accept, torch.sum(lin_n.energy),
-                                   photo_energy)
+        photo_energy = torch.where(accept, photo_n, photo_energy)
         done = (converged & (it + 1 >= MIN_BA_ITERS)) | (lam > 1e3)
         lam = torch.where(accept, torch.clamp(lam * 0.25, min=1e-6),
                           lam * 4.0)
@@ -174,31 +236,52 @@ def optimize(problem: BAProblem, images: torch.Tensor,
     # Outlier classification on the final linearization, with the
     # adaptive per-frame threshold (the looser of host and target).
     lin_f = lin_at(frames, points, calib)
-    pair_ok = problem.pair_mask & problem.points.mask[None, :]
-    frame_th = frame_energy_th(lin_f.energy, pair_ok)
+    return _classify(S, frames, points, calib, lin_f, photo_energy, it,
+                     BAResult)
+
+
+def _classify(S: _Shards, frames, points, calib, lin_f, photo_energy, it,
+              result, **extra):
+    """Whole results of a window solve: the final linearization gathered,
+    the per-frame threshold on it and the outlier pairs (against the
+    problem's own incidence and point mask)."""
+    energy = S.whole((ln.energy for ln in lin_f), 1)
+    oob = S.whole((ln.oob for ln in lin_f), 1)
+    pair_ok = S.whole((p.pair_mask for p in S.parts), 1) \
+        & S.whole(p.points.mask for p in S.parts)[None, :]
+    host0 = S.whole(p.points.host for p in S.parts)
+    frame_th = frame_energy_th(energy, pair_ok)
     th_pair = torch.maximum(frame_th[:, None],
-                            frame_th[problem.points.host.long()][None, :])
-    outlier = pair_ok & ((lin_f.energy > th_pair) | lin_f.oob)
-    return BAResult(
-        frames=frames, points=points, calib=calib, energy=photo_energy,
-        iters=torch.tensor(it), pair_outlier=outlier, pair_oob=lin_f.oob,
-        pair_energy=lin_f.energy, idepth_new=lin_f.idepth_new,
-        u_new=lin_f.u_new, v_new=lin_f.v_new, frame_th=frame_th)
+                            frame_th[host0.long()][None, :])
+    outlier = pair_ok & ((energy > th_pair) | oob)
+    fields = dict(
+        frames=frames, points=S.whole_points(points), calib=calib,
+        energy=photo_energy, iters=torch.tensor(it), pair_outlier=outlier,
+        pair_oob=oob, pair_energy=energy, frame_th=frame_th, **extra)
+    for k in ("idepth_new", "u_new", "v_new"):
+        if k in result._fields:
+            fields[k] = S.whole((getattr(ln, k) for ln in lin_f), 1)
+    return result(**{k: fields[k] for k in result._fields})
 
 
 def marginalization_update(problem: BAProblem, images: torch.Tensor,
                            marg_points: torch.Tensor):
-    """(HM, bM0) increment for the points being marginalized."""
-    F = problem.frames.mask.shape[0]
-    lin = residuals.linearize(problem.frames, problem.points, problem.calib,
-                              images, problem.pair_mask)
-    delta = ba_solve.state_delta(problem.frames, problem.calib,
-                                 problem.calib0)
-    pts = problem.points
-    delta_d = torch.where(pts.mask, pts.idepth - pts.idepth_zero,
-                          torch.zeros_like(pts.idepth))
-    return ba_solve.marginalize_points_system(lin, pts.host, delta, delta_d,
-                                              marg_points, F)
+    """(HM, bM0) increment for the points being marginalized: each shard
+    folds its own points, the increments are summed across shards."""
+    S = _Shards(problem, images)
+    marg = dist_ba.parts_of(marg_points, S.sh)
+    F = S.parts[0].frames.mask.shape[0]
+    lins = S.linearize(S.parts[0].frames, [p.points for p in S.parts],
+                       S.parts[0].calib)
+    incs = []
+    for p, ln, m in zip(S.parts, lins, marg):
+        delta = ba_solve.state_delta(p.frames, p.calib, p.calib0)
+        pts = p.points
+        delta_d = torch.where(pts.mask, pts.idepth - pts.idepth_zero,
+                              torch.zeros_like(pts.idepth))
+        incs.append(ba_solve.marginalize_points_system(
+            ln, pts.host, delta, delta_d, m, F))
+    return S.sum(h for h, _ in incs), S.sum(b for _, b in incs)
 
 
 def select_victims(frames: BAFrames, age_rank: torch.Tensor,
@@ -231,12 +314,25 @@ def marg_fused(problem: BAProblem, images: torch.Tensor,
 
     Returns (vlist [F], HM_add, bM_add, points_new, pair_mask_new,
     n_active_pre, n_active_post)."""
-    vlist = select_victims(problem.frames, age_rank, n_drop, newest_slot)
-    hosted, marg_pts, pm_cleared = window_ops.victims_masks(
-        problem.points, problem.pair_mask, vlist)
-    HM_add, bM_add = marginalization_update(problem, images, marg_pts)
-    n_pre = torch.sum(problem.points.mask.to(torch.float32))
-    points_new, pm_new = window_ops.drop_points_mask(
-        problem.points, pm_cleared, hosted)
-    n_post = torch.sum(points_new.mask.to(torch.float32))
-    return vlist, HM_add, bM_add, points_new, pm_new, n_pre, n_post
+    S = _Shards(problem, images)
+    vlist = select_victims(S.parts[0].frames, age_rank, n_drop, newest_slot)
+    vls = S.sh.copies(vlist)
+    masks = [window_ops.victims_masks(p.points, p.pair_mask, v)
+             for p, v in zip(S.parts, vls)]
+    HM_add, bM_add = marginalization_update(
+        problem, images, _replaced(problem, [m[1] for m in masks]))
+    n_pre = S.sum(torch.sum(p.points.mask.to(torch.float32))
+                  for p in S.parts)
+    drops = [window_ops.drop_points_mask(p.points, pm, hosted)
+             for p, (hosted, _, pm) in zip(S.parts, masks)]
+    n_post = S.sum(torch.sum(pts.mask.to(torch.float32))
+                   for pts, _ in drops)
+    return (vlist, HM_add, bM_add, S.whole_points([d[0] for d in drops]),
+            S.whole((d[1] for d in drops), 1), n_pre, n_post)
+
+
+def _replaced(like, parts):
+    """Per-shard `parts` placed as `like` is (plain when unsharded)."""
+    if isinstance(like, dist_ba.Placed):
+        return dist_ba.Placed(parts, like.placer)
+    return parts[0]

@@ -38,7 +38,11 @@ attached the chain costs nothing on the device and no host sync.
 save_checkpoint / load_checkpoint serialize the whole odometry state
 (utils/checkpoint.py).
 
-Not ported: multi-device BA (mesh_devices > 1 raises NotImplementedError).
+Multi-device BA (Config.mesh_devices > 1, or any run inside a
+multi-process group from parallel/dist_init): the window BA, the
+marginalization tails and the active visual event run with their point
+axis split over the shards of `self.placer` (parallel/dist_ba.Placer);
+everything else stays on the home device.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from dmvio_tpu_torch.models import ba, coarse_tracker, delayed, imu_system
 from dmvio_tpu_torch.models import initializer, vio_ba, vio_coarse, window
 from dmvio_tpu_torch.models import window_ops
 from dmvio_tpu_torch.ops import ba_solve, immature, pyramid
+from dmvio_tpu_torch.parallel import dist_ba, dist_init
 from dmvio_tpu_torch.utils import fetch, lie
 from dmvio_tpu_torch.utils.camera import Calib
 from dmvio_tpu_torch.utils.timing import TimeMeasurement
@@ -102,10 +107,26 @@ class FullSystem:
                  imu_calib=None):
         self.device = resolve_device(device)
         self.cfg = cfg or window.Config()
-        if self.cfg.mesh_devices and self.cfg.mesh_devices > 1:
-            raise NotImplementedError(
-                "dmvio_tpu_torch runs on one device; mesh_devices > 1 is not "
-                "ported yet")
+        # Distributed BA: the point-axis programs (window BA, point
+        # marginalization) run sharded; everything else stays on the home
+        # device. Under a multi-process group every rank runs this same
+        # host pipeline and the shards span every rank, whatever
+        # mesh_devices says (0 or 1: one shard per rank). The ranks call
+        # the collectives in the same order only while their pipelines
+        # take the same decisions; realtime decisions that hang on when a
+        # copy lands or a PGBA thread ends would differ by rank, so a
+        # multi-process run takes them synchronously (lockstep).
+        self.placer = None
+        n_mesh = self.cfg.mesh_devices or 0
+        lockstep = dist_init.is_multiprocess()
+        if lockstep:
+            self.placer = dist_ba.Placer(
+                dist_ba.make_mesh(n_mesh if n_mesh > 1 else 0,
+                                  device=self.device), home=self.device)
+        elif n_mesh > 1:
+            self.placer = dist_ba.Placer(
+                dist_ba.make_mesh(n_mesh, device=self.device),
+                home=self.device)
         # Cap pyramid depth so the coarsest level keeps enough pixels.
         while self.cfg.levels > 1 and \
                 (min(h, w) >> (self.cfg.levels - 1)) < 12:
@@ -117,7 +138,8 @@ class FullSystem:
             # Realtime mode runs PGBA on a background thread (the
             # reference's RealtimePGBAState); serial mode stays
             # deterministic.
-            self.imu.pgba_background = bool(self.cfg.realtime)
+            self.imu.pgba_background = bool(self.cfg.realtime) \
+                and not lockstep
         calib = calib.to(self.device)
         self.calib = calib
         self.h, self.w = h, w
@@ -156,7 +178,8 @@ class FullSystem:
         # Realtime pipeline state.
         self._rt_queue = []       # in-flight frames, oldest first
         self._kf_finalize = None  # deferred keyframe host half
-        self._fetcher = fetch.AsyncFetcher(enabled=self.cfg.async_fetch)
+        self._fetcher = fetch.AsyncFetcher(
+            enabled=self.cfg.async_fetch and not lockstep)
         self._last_pose_dev = None   # device pose history for candidates
         self._prev_pose_dev = None
         self._valid_pose_dev = None  # newest valid pose (keyframe guard)
@@ -1044,15 +1067,29 @@ class FullSystem:
             calib0=w.calib0, HM=self._t(w.HM), bM0=self._t(w.bM0),
             prior_diag=self._t(w.prior_diag), pair_mask=w.pair_mask)
 
+    def _placed(self, problem):
+        """(problem, images) of the window for a point-axis program,
+        placed on the shards when a placer is set."""
+        images = self.win.images
+        if self.placer is None:
+            return problem, images
+        place = self.placer.place_vio \
+            if isinstance(problem, vio_ba.VIOProblem) \
+            else self.placer.place_ba
+        return place(problem), self.placer.place_images(images)
+
+    def _gathered(self, out):
+        return out if self.placer is None else self.placer.gather(out)
+
     def _run_ba(self, max_iters: int):
         w = self.win
         if self._vio_mode():
-            result = vio_ba.optimize(self._vio_problem(), w.images,
-                                     max_iters=max_iters)
+            result = self._gathered(vio_ba.optimize(
+                *self._placed(self._vio_problem()), max_iters=max_iters))
             self.imu.states = result.states
         else:
-            result = ba.optimize(self._problem(), w.images,
-                                 max_iters=max_iters)
+            result = self._gathered(ba.optimize(
+                *self._placed(self._problem()), max_iters=max_iters))
         self._frame_th_dev = result.frame_th
         w.frames = result.frames
         w.points = result.points
@@ -1138,9 +1175,9 @@ class FullSystem:
         for r_, s_ in enumerate(slots):
             age_rank[s_] = r_
         n_drop = max(0, len(slots) - cfg.max_frames) if len(slots) > 2 else 0
-        return ba.marg_fused(self._problem(), w.images,
-                             self._t(age_rank, torch.int32), n_drop,
-                             newest_slot)
+        return self._gathered(ba.marg_fused(
+            *self._placed(self._problem()), self._t(age_rank, torch.int32),
+            n_drop, newest_slot))
 
     def _apply_marg_host(self, vlist, HM_np, bM_np, pts_new_d,
                          pm_new_d) -> None:
@@ -1187,9 +1224,9 @@ class FullSystem:
         n_drop = max(0, len(slots) - self.cfg.max_frames) \
             if len(slots) > 2 else 0
         (vlist, HM, bM, foldH, foldb, pts, pm, n_pre,
-         n_post) = vio_ba.vio_marg_fused(
-            self._vio_problem(), w.images, self._t(age_rank, torch.int32),
-            n_drop, newest_slot)
+         n_post) = self._gathered(vio_ba.vio_marg_fused(
+             *self._placed(self._vio_problem()),
+             self._t(age_rank, torch.int32), n_drop, newest_slot))
         st = imu.states
         fej = (w.frames.R0_cw, w.frames.t0_cw, w.frames.aff0, st.v0, st.bg0,
                st.ba0, st.s_log0, st.g20)
@@ -1323,8 +1360,10 @@ class FullSystem:
         w = self.win
         F = self.cfg.f_max
         imu = self.imu
-        H_add, b_add = ba.marginalization_update(self._problem(), w.images,
-                                                 w.points.mask)
+        marg = w.points.mask if self.placer is None \
+            else self.placer.point_sharded(w.points.mask)
+        H_add, b_add = self._gathered(ba.marginalization_update(
+            *self._placed(self._problem()), marg))
         H_ext = vio_ba.embed_vis(H_add * vio_ba.W_DSO, F)
         b_ext = vio_ba.embed_vis(b_add * vio_ba.W_DSO, F)
         slots = w.slots_by_age()

@@ -28,10 +28,10 @@ import torch
 from torch.func import jvp, vmap
 
 from dmvio_tpu_torch.models import ba as ba_mod
-from dmvio_tpu_torch.models import window_ops
 from dmvio_tpu_torch.ops import ba_solve, preint, residuals
 from dmvio_tpu_torch.ops.ba_solve import CPART, cdim
 from dmvio_tpu_torch.ops.residuals import BAFrames, BAPoints
+from dmvio_tpu_torch.parallel import dist_ba
 from dmvio_tpu_torch.utils import lie
 from dmvio_tpu_torch.utils.camera import Calib
 
@@ -263,45 +263,58 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
              max_iters: int = 6, w_dso: float = W_DSO) -> VIOResult:
     """Joint visual-inertial LM over the extended window state: embed the
     point-reduced photometric system, add the IMU factor system and the
-    priors, solve jointly, retract (computeBAUpdate)."""
-    base = problem.base
+    priors, solve jointly, retract (computeBAUpdate). `problem` and
+    `images` may be placed by a dist_ba.Placer (place_vio): the visual
+    point axis then runs per shard, the IMU block once."""
+    S = ba_mod._Shards(_bases(problem), images)
+    prob0 = dist_ba.unplace(problem)[0][0]
+    base = S.parts[0]
     F = base.frames.mask.shape[0]
     C = cdim_ext(F)
     Cv = cdim(F)
     dev = base.frames.R_cw.device
-    imu_on = bool(problem.imu_on)
+    imu_on = bool(prob0.imu_on)
 
-    geo = residuals.fej_geometry(base.frames, base.points, base.calib)
+    geos = [residuals.fej_geometry(p.frames, p.points, p.calib)
+            for p in S.parts]
 
     def lin_vis(frames, points, calib):
-        return residuals.linearize(frames, points, calib, images,
-                                   base.pair_mask, geo=geo)
+        return S.linearize(frames, points, calib, geos)
 
-    def energies(frames, calib, states, lin):
+    def photo(lins):
+        return S.sum(torch.sum(ln.energy) for ln in lins)
+
+    def energies(frames, calib, states, e_photo):
         delta = vio_delta(frames, calib, base.calib0, states, F)
-        e_m = delta @ (2.0 * problem.bM0 + problem.HM @ delta)
-        e_p = delta @ (problem.prior_diag * delta)
+        e_m = delta @ (2.0 * prob0.bM0 + prob0.HM @ delta)
+        e_p = delta @ (prob0.prior_diag * delta)
         _, _, e_imu = imu_factor_system(
             frames._replace(R0_cw=frames.R_cw, t0_cw=frames.t_cw),
-            states, problem.pairs, problem.R_cb, problem.t_cb, F)
+            states, prob0.pairs, prob0.R_cb, prob0.t_cb, F)
         if not imu_on:
             e_imu = torch.zeros_like(e_imu)
-        return w_eff * torch.sum(lin.energy) + e_imu + e_m + e_p, e_imu
+        return w_eff * e_photo + e_imu + e_m + e_p, e_imu
 
-    lin0 = lin_vis(base.frames, base.points, base.calib)
-    # Dynamic photometric weight from the initial linearization, fixed for
-    # the whole solve so the LM objective stays consistent.
-    n_px = torch.clamp(torch.sum(lin0.active.to(torch.float32)), min=1.0)
-    rmse0 = torch.sqrt(torch.sum(lin0.energy) / n_px)
+    frames, calib = base.frames, base.calib
+    points = tuple(p.points for p in S.parts)
+    pmasks = tuple(p.mask for p in points)
+    lin0 = lin_vis(frames, points, calib)
+    # Dynamic photometric weight from the initial linearization (one RMSE
+    # over every shard), fixed for the whole solve so the LM objective
+    # stays consistent.
+    n_px = torch.clamp(S.sum(torch.sum(ln.active.to(torch.float32))
+                             for ln in lin0), min=1.0)
+    e_photo0 = photo(lin0)
+    rmse0 = torch.sqrt(e_photo0 / n_px)
     dyn = torch.where(rmse0 > DYN_RMSE_TH,
                       (DYN_RMSE_TH / torch.clamp(rmse0, min=1e-6)) ** 2,
                       torch.ones_like(rmse0))
     w_eff = w_dso * dyn if imu_on else w_dso * torch.ones_like(rmse0)
 
-    frames, points, calib = base.frames, base.points, base.calib
-    states = problem.states
-    energy, imu_energy = energies(frames, calib, states, lin0)
-    sys_v = ba_solve.accumulate(lin0, points.host, F)
+    states = prob0.states
+    energy, imu_energy = energies(frames, calib, states, e_photo0)
+    sys_v = ba_solve.accumulate_shards(lin0, [p.host for p in points], F,
+                                       S.sh)
     lam = torch.tensor(1e-4, device=dev)
 
     # Coordinate mask: unoccupied frames; IMU coords gated by imu_on.
@@ -314,17 +327,15 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
     it = 0
     while it < max_iters:
         delta = vio_delta(frames, calib, base.calib0, states, F)
-        # Point-Schur on the visual system, then embed into C_ext.
-        Hdd = sys_v.H_dd * (1.0 + lam) + 1e-10
-        Hdd_inv = torch.where(points.mask, 1.0 / Hdd, torch.zeros_like(Hdd))
-        H_sc = sys_v.H_fd.T @ (sys_v.H_fd * Hdd_inv[:, None])
-        b_sc = sys_v.H_fd.T @ (sys_v.b_d * Hdd_inv)
+        # Point-Schur on the visual system (each shard's partial summed),
+        # then embed into C_ext.
+        H_sc, b_sc, Hdd_inv = ba_solve.point_schur(sys_v, lam, pmasks, S.sh)
         H_vis = (sys_v.H - H_sc) * w_eff
         b_vis = (sys_v.b - b_sc) * w_eff
 
         fr_cur, st_cur = at_current(frames, states)
         rows, r_imu, _ = imu_factor_system(
-            fr_cur, st_cur, problem.pairs, problem.R_cb, problem.t_cb, F)
+            fr_cur, st_cur, prob0.pairs, prob0.R_cb, prob0.t_cb, F)
         Jf = rows.reshape(-1, C)
         if imu_on:
             H_imu = Jf.T @ Jf
@@ -333,10 +344,10 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
             H_imu = torch.zeros(C, C, device=dev)
             b_imu = torch.zeros(C, device=dev)
 
-        H = embed_vis(H_vis, F) + H_imu + problem.HM \
-            + torch.diag(problem.prior_diag)
-        b = embed_vis(b_vis, F) + b_imu + problem.bM0 \
-            + problem.HM @ delta + problem.prior_diag * delta
+        H = embed_vis(H_vis, F) + H_imu + prob0.HM \
+            + torch.diag(prob0.prior_diag)
+        b = embed_vis(b_vis, F) + b_imu + prob0.bM0 \
+            + prob0.HM @ delta + prob0.prior_diag * delta
         H = H + lam * torch.diag(torch.diagonal(H))
         H = H * cm[:, None] * cm[None, :] + torch.diag(1.0 - cm)
         b = b * cm
@@ -346,12 +357,17 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
         dx = torch.linalg.solve_ex(Hp, -(b / d))[0] / d
         dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx)) * cm
 
-        # Back-substitute idepths from the visual part of the step.
+        # Back-substitute idepths from the visual part of the step, per
+        # shard.
         dx_vis = dx[:Cv]
-        dx_d = -(sys_v.b_d + sys_v.H_fd @ dx_vis) * Hdd_inv
+        dx_d = [ba_solve.back_substitute(H_fd, b_d, hi, pm, dxk)
+                for H_fd, b_d, hi, pm, dxk in zip(
+                    sys_v.H_fd, sys_v.b_d, Hdd_inv, pmasks,
+                    S.sh.copies(dx_vis))]
 
-        frames_n, points_n, calib_n = ba_mod._apply_step(
-            frames, points, calib, dx_vis, dx_d, F)
+        frames_n, calib_n = ba_mod._apply_step(frames, calib, dx_vis, F)
+        points_n = tuple(ba_mod._step_points(p, dd)
+                         for p, dd in zip(points, dx_d))
         d_imu = dx[Cv:Cv + 9 * F].reshape(F, 9)
         states_n = states._replace(
             v=states.v + d_imu[:, 0:3], bg=states.bg + d_imu[:, 3:6],
@@ -360,7 +376,7 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
             g2=states.g2 + dx[Cv + 9 * F + 1:Cv + 9 * F + 3])
 
         lin_n = lin_vis(frames_n, points_n, calib_n)
-        e_n, ei_n = energies(frames_n, calib_n, states_n, lin_n)
+        e_n, ei_n = energies(frames_n, calib_n, states_n, photo(lin_n))
         accept = (e_n < energy) & torch.isfinite(e_n)
         step_sq = torch.sum(dx * dx)
         # Small-step or flat-step termination in either direction (the
@@ -368,7 +384,8 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
         done = (step_sq < 1e-12) | (lam > 1e4) \
             | (torch.abs(energy - e_n)
                < 2e-4 * torch.clamp(energy, min=1e-12))
-        sys_n = ba_solve.accumulate(lin_n, points_n.host, F)
+        sys_n = ba_solve.accumulate_shards(
+            lin_n, [p.host for p in points_n], F, S.sh)
         frames = ba_mod._select(accept, frames_n, frames)
         points = ba_mod._select(accept, points_n, points)
         calib = ba_mod._select(accept, calib_n, calib)
@@ -384,25 +401,18 @@ def optimize(problem: VIOProblem, images: torch.Tensor,
 
     # Final-state linearization for outlier classification.
     lin_f = lin_vis(frames, points, calib)
-    pair_ok = base.pair_mask & base.points.mask[None, :]
-    frame_th = ba_mod.frame_energy_th(lin_f.energy, pair_ok)
-    th_pair = torch.maximum(frame_th[:, None],
-                            frame_th[base.points.host.long()][None, :])
-    outlier = pair_ok & ((lin_f.energy > th_pair) | lin_f.oob)
-    return VIOResult(
-        frames=frames, points=points, calib=calib, states=states,
-        energy=torch.sum(lin_f.energy), imu_energy=imu_energy,
-        iters=torch.tensor(it), pair_outlier=outlier,
-        pair_energy=lin_f.energy, vis_rmse=rmse0, dyn_weight=dyn,
-        frame_th=frame_th)
+    out = ba_mod._classify(S, frames, points, calib, lin_f, None, it,
+                           VIOResult, states=states, imu_energy=imu_energy,
+                           vis_rmse=rmse0, dyn_weight=dyn)
+    return out._replace(energy=torch.sum(out.pair_energy))
 
 
-def marginalize_points_ext(problem: VIOProblem, images: torch.Tensor,
-                           marg_points: torch.Tensor, F: int):
-    """Visual point marginalization embedded into the extended prior."""
-    HM_add, bM_add = ba_mod.marginalization_update(problem.base, images,
-                                                   marg_points)
-    return embed_vis(HM_add * W_DSO, F), embed_vis(bM_add * W_DSO, F)
+def _bases(problem):
+    """The visual window problem of a (possibly placed) VIOProblem."""
+    if isinstance(problem, dist_ba.Placed):
+        return dist_ba.Placed([p.base for p in problem.parts],
+                              problem.placer)
+    return problem.base
 
 
 def vio_marg_fused(problem: VIOProblem, images: torch.Tensor,
@@ -414,25 +424,20 @@ def vio_marg_fused(problem: VIOProblem, images: torch.Tensor,
 
     Returns (vlist [F], HM_add, bM_add, fold_H, fold_b, points_new,
     pair_mask_new, n_active_pre, n_active_post)."""
-    base = problem.base
+    prob0 = dist_ba.unplace(problem)[0][0]
+    base = prob0.base
     F = base.frames.mask.shape[0]
-    vlist = ba_mod.select_victims(base.frames, age_rank, n_drop,
-                                  newest_slot)
-    hosted, marg_pts, pm_cleared = window_ops.victims_masks(
-        base.points, base.pair_mask, vlist)
-    HM_add, bM_add = marginalize_points_ext(problem, images, marg_pts, F)
-    is_v_i = torch.any(problem.pairs.i[:, None] == vlist[None, :], dim=1)
-    is_v_j = torch.any(problem.pairs.j[:, None] == vlist[None, :], dim=1)
-    sel = problem.pairs.valid & (is_v_i | is_v_j)
+    (vlist, HM_add, bM_add, points_new, pm_new, n_pre,
+     n_post) = ba_mod.marg_fused(_bases(problem), images, age_rank, n_drop,
+                                 newest_slot)
+    is_v_i = torch.any(prob0.pairs.i[:, None] == vlist[None, :], dim=1)
+    is_v_j = torch.any(prob0.pairs.j[:, None] == vlist[None, :], dim=1)
+    sel = prob0.pairs.valid & (is_v_i | is_v_j)
     fold_H, fold_b = fold_pairs_into_prior(
-        base.frames, problem.states, problem.pairs, problem.R_cb,
-        problem.t_cb, base.calib, base.calib0, F, sel)
-    n_pre = torch.sum(base.points.mask.to(torch.float32))
-    points_new, pm_new = window_ops.drop_points_mask(
-        base.points, pm_cleared, hosted)
-    n_post = torch.sum(points_new.mask.to(torch.float32))
-    return (vlist, HM_add, bM_add, fold_H, fold_b, points_new, pm_new,
-            n_pre, n_post)
+        base.frames, prob0.states, prob0.pairs, prob0.R_cb, prob0.t_cb,
+        base.calib, base.calib0, F, sel)
+    return (vlist, embed_vis(HM_add * W_DSO, F), embed_vis(bM_add * W_DSO, F),
+            fold_H, fold_b, points_new, pm_new, n_pre, n_post)
 
 
 def fold_pairs_into_prior(frames: BAFrames, states: VIOStates,

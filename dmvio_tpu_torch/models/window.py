@@ -24,8 +24,9 @@ from dmvio_tpu_torch.utils.camera import Calib
 @dataclasses.dataclass
 class Config:
     """Runtime knobs, defaults mirroring the reference operating point.
-    `mesh_devices` exists so a caller can ask for it; the port's
-    FullSystem refuses it. The `rt_*` knobs and `async_fetch` steer the
+    `mesh_devices` > 1 shards the window BA's point axis over that many
+    devices (parallel/dist_ba; on the CPU, that many shards of the CPU).
+    The `rt_*` knobs and `async_fetch` steer the
     realtime pipeline (`realtime=True`) with the reference's names,
     defaults and meanings (dmvio_tpu/models/window.py says how each was
     chosen); they were tuned to the TPU's host link, not to this card."""
@@ -134,6 +135,11 @@ class Window:
             if fid is None:
                 return s
         raise RuntimeError("window full: marginalize before inserting")
+
+    def newest_slot(self) -> int:
+        """Slot of the newest keyframe (host truth: slot_frame_id)."""
+        ids = [(-1 if i is None else i) for i in self.slot_frame_id]
+        return int(np.argmax(ids))
 
     def slots_by_age(self):
         """Occupied slots, oldest first (host truth)."""

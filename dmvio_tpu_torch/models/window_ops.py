@@ -31,6 +31,9 @@ def _argsort(x: torch.Tensor) -> torch.Tensor:
 
 
 def _set(arr: torch.Tensor, idx, vals) -> torch.Tensor:
+    # Clone, never write in place: snapshots of the window rely on it, and
+    # so does parallel/dist_ba.Placer, which caches its copies of the image
+    # stack by the stack tensor's identity.
     out = arr.clone()
     out[idx] = vals
     return out

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from dmvio_tpu_torch.ops.residuals import BAFrames, BAResiduals
+from dmvio_tpu_torch.parallel import dist_ba
 from dmvio_tpu_torch.utils import lie
 from dmvio_tpu_torch.utils.camera import Calib
 
@@ -129,16 +130,23 @@ def orthogonalize_step(dx: torch.Tensor, N: torch.Tensor) -> torch.Tensor:
 
 
 def solve_levenberg(sys: BASystem, HM, bM_eff, H_prior_diag, b_prior, lam,
-                    frame_mask, point_mask, N_null=None):
+                    frame_mask, point_mask, N_null=None, shards=None):
     """One damped GN solve with point Schur (solveSystemF). Returns
     (dx_f [C], dx_d [P]); unoccupied slots and inactive points get exact
-    zero steps."""
+    zero steps.
+
+    Sharded (`shards`, a parallel/dist_ba placer): sys.H_fd, H_dd, b_d and
+    point_mask are tuples of per-shard tensors, sys.H and sys.b their
+    shard sums; each shard's point-Schur partial is summed by the placer,
+    the camera step is solved once, and dx_d comes back per shard."""
+    one = shards is None
+    if one:
+        sys = sys._replace(H_fd=(sys.H_fd,), H_dd=(sys.H_dd,),
+                           b_d=(sys.b_d,))
+        point_mask = (point_mask,)
+        shards = dist_ba.ONE
     dev = sys.H.device
-    Hdd = sys.H_dd * (1.0 + lam) + 1e-10
-    Hdd_inv = torch.where(point_mask, 1.0 / Hdd, torch.zeros_like(Hdd))
-    Hfd_w = sys.H_fd * Hdd_inv[:, None]
-    H_sc = sys.H_fd.T @ Hfd_w
-    b_sc = sys.H_fd.T @ (sys.b_d * Hdd_inv)
+    H_sc, b_sc, Hdd_inv = point_schur(sys, lam, point_mask, shards)
     H = sys.H + HM + torch.diag(H_prior_diag) - H_sc
     b = sys.b + bM_eff + b_prior - b_sc
     H = H + lam * torch.diag(torch.diagonal(
@@ -156,8 +164,48 @@ def solve_levenberg(sys: BASystem, HM, bM_eff, H_prior_diag, b_prior, lam,
     dx = torch.where(torch.isfinite(dx), dx, torch.zeros_like(dx)) * cm
     if N_null is not None:
         dx = orthogonalize_step(dx, N_null)
-    dx_d = -(sys.b_d + sys.H_fd @ dx) * Hdd_inv
-    return dx, torch.where(point_mask, dx_d, torch.zeros_like(dx_d))
+    dx_d = tuple(back_substitute(H_fd, b_d, hi, pm, dxk) for
+                 H_fd, b_d, hi, pm, dxk in zip(sys.H_fd, sys.b_d, Hdd_inv,
+                                               point_mask,
+                                               shards.copies(dx)))
+    return dx, dx_d[0] if one else dx_d
+
+
+def point_schur(sys: BASystem, lam, point_mask, shards):
+    """The damped point-Schur terms of a sharded system (per-shard
+    tuples, as accumulate_shards gives them): (H_sc, b_sc) summed over
+    the shards by `shards`, and each shard's 1 / H_dd (zero for inactive
+    points)."""
+    Hdd_inv = []
+    for H_dd, pm, lm in zip(sys.H_dd, point_mask, shards.copies(lam)):
+        Hdd = H_dd * (1.0 + lm) + 1e-10
+        Hdd_inv.append(torch.where(pm, 1.0 / Hdd, torch.zeros_like(Hdd)))
+    H_sc = shards.reduce([H_fd.T @ (H_fd * hi[:, None])
+                          for H_fd, hi in zip(sys.H_fd, Hdd_inv)])
+    b_sc = shards.reduce([H_fd.T @ (b_d * hi) for H_fd, b_d, hi
+                          in zip(sys.H_fd, sys.b_d, Hdd_inv)])
+    return H_sc, b_sc, Hdd_inv
+
+
+def back_substitute(H_fd, b_d, Hdd_inv, point_mask, dx_f):
+    """One shard's idepth steps from the camera step: -(b_d + H_fd dx_f) /
+    H_dd, exactly zero for inactive points."""
+    dx_d = -(b_d + H_fd @ dx_f) * Hdd_inv
+    return torch.where(point_mask, dx_d, torch.zeros_like(dx_d))
+
+
+def accumulate_shards(lins, hosts, F: int, shards) -> BASystem:
+    """`accumulate` on each shard; the camera blocks, energy and term count
+    are summed by `shards` (a parallel/dist_ba placer), the per-point
+    blocks stay on their shards as tuples."""
+    parts = [accumulate(r, h, F) for r, h in zip(lins, hosts)]
+    return BASystem(
+        H=shards.reduce([s.H for s in parts]),
+        b=shards.reduce([s.b for s in parts]),
+        H_fd=tuple(s.H_fd for s in parts), H_dd=tuple(s.H_dd for s in parts),
+        b_d=tuple(s.b_d for s in parts),
+        energy=shards.reduce([s.energy for s in parts]),
+        num_terms=shards.reduce([s.num_terms for s in parts]))
 
 
 def marginalize_points_system(res: BAResiduals, host, delta, delta_d, pmask,

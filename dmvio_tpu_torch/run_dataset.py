@@ -14,8 +14,11 @@ and viz/ with nogui=0.
 `device=` (default cuda) picks the card; without CUDA the run raises
 unless device=cpu is passed. The JAX package's persistent compilation
 cache has no counterpart (the port's kernels are built once into
-build/kernels/), and multi-process runs wait for the multi-GPU slice:
-mesh_devices > 1 raises.
+build/kernels/). Under DMVIO_COORDINATOR / DMVIO_NUM_PROCESSES /
+DMVIO_PROCESS_ID (or DMVIO_DIST=auto) each process joins a
+torch.distributed group before it touches a device (NCCL on CUDA, gloo
+with device=cpu), and the window BA's point axis is sharded over every
+rank; mesh_devices=N shards it over N devices within one process.
 
 Usage:
     python -m dmvio_tpu_torch.run_dataset files=DIR calib=camera.txt \
@@ -140,6 +143,7 @@ def run(argv=None) -> dict:
     from dmvio_tpu_torch.io import dataset as ds
     from dmvio_tpu_torch.io import native
     from dmvio_tpu_torch.models import full_system, window
+    from dmvio_tpu_torch.parallel import dist_init
     from dmvio_tpu_torch.utils import trajectory
     from dmvio_tpu_torch.utils.settings import SettingsUtil
     from dmvio_tpu_torch.utils.timing import TimeMeasurement, save_results
@@ -181,6 +185,10 @@ def run(argv=None) -> dict:
     if leftover:
         print(f"ignored arguments: {leftover}", file=sys.stderr)
     dev = dmvio_tpu_torch.device(su["device"])
+    # Multi-process seam: with the DMVIO_* variables set every process
+    # joins the group before it first touches a device; the FullSystem
+    # below then shards its window BA over every rank.
+    dist_init.maybe_initialize(device=dev)
     # Presets (settingsDefault, MainSettings.cpp:206-258): 0/1 = default
     # quality tier (2000 points, 7-KF window, 6 LM iterations; 1 enforces
     # realtime), 2/3 = fast tier (800 points, 6-KF window, 4 iterations;

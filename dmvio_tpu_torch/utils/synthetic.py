@@ -361,3 +361,83 @@ def generate_vio_sequence(
         "steps_per_frame": spf, "imu_dt": dt,
         "s_dso": s_dso, "g2": np.asarray(g2),
     }
+
+
+def orbit_poses(num: int, radius: float = 0.08, z_step: float = 0.02,
+                yaw_step: float = 0.015, device=None):
+    """A gentle camera trajectory: lateral arc with small rotations.
+
+    Returns (R_cw [N,3,3], t_cw [N,3]) float32 on `device` (None: CUDA);
+    frame 0 is the identity (world)."""
+    dev = dmvio_tpu_torch.device(device)
+    Rs, ts = [], []
+    for i in range(num):
+        ang = i * 2.0 * math.pi / max(num * 4, 1)
+        center = torch.tensor(
+            [radius * math.sin(ang) * i / max(num - 1, 1),
+             0.5 * radius * (1 - math.cos(ang)), -z_step * i],
+            dtype=torch.float32, device=dev)
+        w = torch.tensor([0.3 * yaw_step * i, yaw_step * i,
+                          0.1 * yaw_step * i], dtype=torch.float32,
+                         device=dev)
+        R_cw = lie.so3_exp(w).T
+        Rs.append(R_cw)
+        ts.append(-R_cw @ center)
+    return torch.stack(Rs), torch.stack(ts)
+
+
+def tiny_ba_problem(P: int = 256, F: int = 4, H: int = 64, W: int = 64,
+                    device=None):
+    """A window BA problem with a known answer: F frames of
+    default_scene along orbit_poses, P points on random host pixels of
+    frames 0 and 1 with ground-truth inverse depths perturbed by 2%, the
+    first frame's pose and the intrinsics pinned by 1e8 priors. Returns
+    (ba.BAProblem, level-0 images [F, 3, H, W]) on `device` (None: CUDA).
+    The same recipe, numpy seed 0, as the JAX package's driver entry
+    problem."""
+    from dmvio_tpu_torch.models import ba
+    from dmvio_tpu_torch.ops import ba_solve, interp, pyramid
+    from dmvio_tpu_torch.ops.residuals import BAFrames, BAPoints
+    from dmvio_tpu_torch.utils.camera import PATTERN
+
+    dev = dmvio_tpu_torch.device(device)
+    rng = np.random.default_rng(0)
+    calib = Calib.create(70.0, 70.0, W / 2 - 0.5, H / 2 - 0.5, device=dev)
+    scene = default_scene(depth=2.0, device=dev)
+    R_gt, t_gt = orbit_poses(F, radius=0.1, z_step=0.02, device=dev)
+    images = torch.stack([
+        pyramid.build_pyramid(render(scene, R_gt[f], t_gt[f], calib, H, W),
+                              levels=1)[0] for f in range(F)])
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                    device=dev)
+    host = torch.as_tensor(rng.integers(0, 2, P).astype(np.int32),
+                           device=dev)
+    u = f32(rng.uniform(8, W - 8, P))
+    v = f32(rng.uniform(8, H - 8, P))
+    hl = host.long()
+    idep = torch.stack([gt_idepth(scene, R_gt[f], t_gt[f], calib, u, v)
+                        for f in range(F)])[hl, torch.arange(P, device=dev)]
+    pat = torch.as_tensor(PATTERN, device=dev)
+    color = torch.stack([interp.bilinear(images[f][0],
+                                         u[:, None] + pat[:, 0],
+                                         v[:, None] + pat[:, 1])
+                         for f in range(F)])[hl, torch.arange(P, device=dev)]
+    zeros2 = torch.zeros(F, 2, device=dev)
+    frames = BAFrames(R_cw=R_gt, t_cw=t_gt, aff=zeros2, R0_cw=R_gt,
+                      t0_cw=t_gt, aff0=zeros2,
+                      mask=torch.ones(F, dtype=torch.bool, device=dev))
+    noise = f32(rng.standard_normal(P))
+    points = BAPoints(
+        host=host, u=u, v=v, idepth=idep * (1.0 + 0.02 * noise),
+        idepth_zero=idep, color=color,
+        weight=torch.ones(P, 8, device=dev),
+        mask=torch.ones(P, dtype=torch.bool, device=dev))
+    C = ba_solve.cdim(F)
+    prior = torch.zeros(C, device=dev)
+    prior[:12] = 1e8
+    problem = ba.BAProblem(
+        frames=frames, points=points, calib=calib, calib0=calib.as_vec(),
+        HM=torch.zeros(C, C, device=dev), bM0=torch.zeros(C, device=dev),
+        prior_diag=prior,
+        pair_mask=host[None, :] != torch.arange(F, device=dev)[:, None])
+    return problem, images

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -128,15 +129,48 @@ def test_constructors_default_to_cuda(make):
     dict(cfg=dict(mesh_devices=2)),
     dict(cfg=dict(mesh_devices=4, realtime=True),
          imu_calib=imu_system.IMUCalib()),
+    dict(cfg=dict(mesh_devices=4), imu_calib=imu_system.IMUCalib()),
 ])
-def test_unported_modes_refuse(kwargs):
-    """Multi-device BA is not ported, in any mode (serial or realtime,
-    visual or inertial)."""
-    calib = Calib.create(100.0, 100.0, 63.5, 47.5, device="cpu")
-    cfg = window.Config(levels=3, **kwargs.get("cfg", {}))
-    with pytest.raises(NotImplementedError):
-        full_system.FullSystem(calib, 96, 128, cfg, device="cpu",
-                               imu_calib=kwargs.get("imu_calib"))
+def test_mesh_modes_shard_on_the_cpu(kwargs):
+    """Multi-device BA runs in every mode (serial or realtime, visual or
+    inertial): on the CPU the FullSystem builds a placer of mesh_devices
+    shards and its first keyframes' BA goes through it."""
+    seq = synthetic.generate_vio_sequence(
+        n_frames=24, frame_dt=0.05, h=96, w=128, s_dso=1.4,
+        g2=(0.06, -0.04), accel_scale=0.8, rot_scale=0.45, seed=3,
+        scene=synthetic.default_scene(2.0, device="cpu"))
+    cfg = window.Config(f_max=4, p_max=128, i_max=128, max_frames=3,
+                        levels=3, ba_iters=2, async_fetch=False,
+                        **kwargs["cfg"])
+    fs = full_system.FullSystem(seq["calib"], 96, 128, cfg, device="cpu",
+                                imu_calib=kwargs.get("imu_calib"))
+    n = cfg.mesh_devices
+    assert fs.placer is not None and fs.placer.n_shards == n
+    assert fs.placer.devices == [torch.device("cpu")] * n
+    spf = seq["steps_per_frame"]
+    for i in range(24):
+        chunk = None
+        if i > 0 and fs.imu is not None:
+            s0, s1 = (i - 1) * spf, i * spf
+            chunk = (seq["acc"][s0:s1], seq["gyr"][s0:s1],
+                     np.full(s1 - s0, seq["imu_dt"], np.float32))
+        fs.add_frame(seq["images"][i], float(seq["timestamps"][i]),
+                     imu_data=chunk)
+        if fs.stats_kf >= 2:
+            break
+    fs.finish()
+    assert fs.stats_kf >= 2 and fs.stats_resets == 0
+    # The window's image stack went through the placer: the BA ran sharded.
+    assert fs.placer._img_key is not None
+    assert all(np.all(np.isfinite(p[2])) for p in fs.trajectory())
+
+
+def test_isolation_scan_covers_the_multi_device_slice():
+    """The scan above reads the sharded BA and the three tools."""
+    for rel in ("parallel/dist_ba.py", "parallel/dist_init.py",
+                "tools/scaling_probe.py", "tools/profile_device.py",
+                "tools/accuracy_probe.py"):
+        assert ROOT / "dmvio_tpu_torch" / rel in PORT_FILES, rel
 
 
 def _tiny_dataset(root):

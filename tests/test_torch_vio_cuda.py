@@ -12,6 +12,12 @@ to 2e-4, velocities to 2e-3, idepths to 2e-3 relative, outlier masks
 equal; victims and point masks equal, prior increments to 1e-4 of their
 largest entry.
 
+The same step also runs over an 8-shard one-card dist_ba.Placer and must
+equal the single dispatch on the card at tests/test_dist_pipeline.py's
+tolerances (energy rtol 2e-3, t_cw and s_log atol 2e-4, idepth rtol 5e-3 /
+atol 1e-4; the tail's victims and masks exactly, its increments to rtol
+5e-3 / atol 5e-3).
+
 This file imports no JAX, so that the machine with the card, which has
 none, runs it on its own:
 
@@ -26,6 +32,7 @@ import torch
 from dmvio_tpu_torch.models import full_system, imu_system, window
 from dmvio_tpu_torch.models import vio_ba
 from dmvio_tpu_torch.ops import patch_sample
+from dmvio_tpu_torch.parallel import dist_ba
 from dmvio_tpu_torch.utils import synthetic
 from dmvio_tpu_torch.utils.camera import Calib
 
@@ -83,18 +90,24 @@ def first_vio_keyframe_state():
 
 
 def step(problem, images, age_rank, newest):
+    dev = images.parts[0].device if isinstance(images, dist_ba.Placed) \
+        else images.device
     res = vio_ba.optimize(problem, images, max_iters=CFG["ba_iters"])
     tail = vio_ba.vio_marg_fused(
-        problem, images, torch.as_tensor(age_rank, device=images.device), 1,
-        newest)
+        problem, images, torch.as_tensor(age_rank, device=dev), 1, newest)
     return to(res, "cpu"), to(tail, "cpu")
 
 
-@pytest.mark.cuda
-def test_vio_step_on_card_matches_cpu():
+@pytest.fixture(scope="module")
+def vio_state():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (kernel K1 has no CPU form)")
-    problem, images, age_rank, newest = first_vio_keyframe_state()
+    return first_vio_keyframe_state()
+
+
+@pytest.mark.cuda
+def test_vio_step_on_card_matches_cpu(vio_state):
+    problem, images, age_rank, newest = vio_state
     cr, ct = step(problem, images, age_rank, newest)
     dev = torch.device("cuda")
     patch_sample.sample_patch3.launches = 0
@@ -117,3 +130,31 @@ def test_vio_step_on_card_matches_cpu():
             gt[k], ct[k], rtol=0, atol=1e-4 * float(ct[k].abs().max()))
     assert torch.equal(gt[5].mask, ct[5].mask)
     assert torch.equal(gt[6], ct[6])
+
+
+@pytest.mark.cuda
+def test_sharded_vio_step_on_card_matches_single(vio_state):
+    """The VIO BA and the fused tail over an 8-shard one-card Placer equal
+    the single dispatch on the card (tests/test_dist_pipeline.py's
+    tolerances), with K1 launched on every shard."""
+    problem, images, age_rank, newest = vio_state
+    dev = torch.device("cuda")
+    problem, images = to(problem, dev), images.to(dev)
+    single = step(problem, images, age_rank, newest)
+    placer = dist_ba.Placer([dev] * 8)
+    patch_sample.sample_patch3.launches = 0
+    sharded = step(placer.place_vio(problem), placer.place_images(images),
+                   age_rank, newest)
+    assert patch_sample.sample_patch3.launches >= 8
+    (r1, t1), (rm, tm) = single, sharded
+    torch.testing.assert_close(rm.energy, r1.energy, rtol=2e-3, atol=0)
+    for a, b in ((rm.frames.t_cw, r1.frames.t_cw),
+                 (rm.states.s_log, r1.states.s_log)):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-4)
+    torch.testing.assert_close(rm.points.idepth, r1.points.idepth,
+                               rtol=5e-3, atol=1e-4)
+    assert torch.equal(tm[0], t1[0])
+    for k in (1, 2, 3, 4):
+        torch.testing.assert_close(tm[k], t1[k], rtol=5e-3, atol=5e-3)
+    assert torch.equal(tm[5].mask, t1[5].mask)
+    assert torch.equal(tm[6], t1[6])

@@ -53,11 +53,23 @@ the sim3 ATE of result.txt and the se3 ATE of resultScaled.txt against
 gt.csv after the last frame, with the path length. The port's test gates
 are max(that test's gates, 1.5x the worst of these runs).
 
+`--mesh` runs the pipeline of tests/test_dist_window_scale.py (the
+sharded big window: 256x320, 56 frames of the seed-3 VIO sequence with
+accel_scale 0.5 and rot_scale 0.3, Config(f_max=12, p_max=4096,
+i_max=2048, max_frames=11, levels=5, ba_iters=4, mesh_devices=8) over the
+8 virtual devices) three times (clean, and with 1e-2 intensity noise from
+numpy seeds 1 and 2): each prints the sim3 ATE of trajectory() against
+the ground-truth camera path from first_kf + 5 on, as that test scores
+it, with the path length and the health counters. chip_smoke.py's
+mesh-512 phase gates its big window at max(0.04 dist + 0.01, 1.5x the
+worst of these runs).
+
     python tools/reference_smoke_ate.py [--rt] [n_frames]
     python tools/reference_smoke_ate.py [--rt] --vio [n_frames] [--from N]
     python tools/reference_smoke_ate.py --cli [n_frames] [--from N]
         [--noise K]     (one run: K = 0 clean, or a noise seed)
     python tools/reference_smoke_ate.py --cli-rt7 [--noise K]
+    python tools/reference_smoke_ate.py --mesh [--noise K]
 """
 
 import json
@@ -196,6 +208,62 @@ def run_vio(n, n_from, noise_seed, rt):
         flush=True)
 
 
+# tests/test_dist_window_scale.py's big sharded window.
+MESH_HW = (256, 320)
+MESH_FRAMES = 56
+MESH_SEQ = dict(frame_dt=0.05, s_dso=1.4, g2=(0.06, -0.04), accel_scale=0.5,
+                rot_scale=0.3, seed=3)
+MESH_CFG = dict(f_max=12, p_max=4096, i_max=2048, max_frames=11, levels=5,
+                ba_iters=4, mesh_devices=8)
+
+
+def run_mesh(noise_seed):
+    h, w = MESH_HW
+    seq = synthetic.generate_vio_sequence(
+        n_frames=MESH_FRAMES, h=h, w=w,
+        scene=synthetic.default_scene(depth=2.0), **MESH_SEQ)
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    fs = full_system.FullSystem(seq["calib"], h, w,
+                                window.Config(**MESH_CFG),
+                                imu_calib=imu_system.IMUCalib())
+    spf = seq["steps_per_frame"]
+    t0 = time.perf_counter()
+    for i in range(MESH_FRAMES):
+        chunk = None
+        if i > 0:
+            s0, s1 = (i - 1) * spf, i * spf
+            chunk = (seq["acc"][s0:s1], seq["gyr"][s0:s1],
+                     np.full(s1 - s0, seq["imu_dt"], np.float32))
+        img = seq["images"][i]
+        if rng is not None:
+            img = img + jnp.asarray(rng.normal(0, 1e-2, img.shape),
+                                    jnp.float32)
+        fs.add_frame(img, float(seq["timestamps"][i]), imu_data=chunk)
+    fs.finish()
+    est = fs.trajectory()
+    gt = []
+    for i in range(MESH_FRAMES):
+        R_dso = np.asarray(seq["R_dso"][i])
+        t_dso = np.asarray(seq["t_dso"][i])
+        gt.append((float(seq["timestamps"][i]), R_dso.T, -R_dso.T @ t_dso))
+    first_kf = min(fs.kf_poses.keys())
+    est_t = [e for e, sh in zip(est, fs.shells)
+             if sh.frame_id >= first_kf + 5]
+    gt_t = [g for g, sh in zip(gt, fs.shells)
+            if sh.frame_id >= first_kf + 5]
+    print(json.dumps({
+        "mesh": True, "frames": MESH_FRAMES, "noise_seed": noise_seed,
+        "sim3": trajectory.ate_rmse(est_t, gt_t, with_scale=True),
+        "path_length": float(np.sum(np.linalg.norm(np.diff(
+            np.stack([g[2] for g in gt_t]), axis=0), axis=1))),
+        "initialized": bool(fs.initialized), "resets": fs.stats_resets,
+        "lost_frames": fs.stats_lost_frames, "imu_phase": fs.imu.phase,
+        "keyframes": fs.stats_kf,
+        "occupied_slots": sum(1 for f in fs.win.slot_frame_id
+                              if f is not None),
+        "wall_s_cpu": time.perf_counter() - t0}), flush=True)
+
+
 # chip_smoke.py's cli-vio-512 phase: make_synthetic's arguments (its seed
 # is used by no other phase) and the CLI's.
 CLI_SYNTH = ["w=512", "h=512", "photometric=1", "seed=4"]
@@ -288,6 +356,14 @@ def run_cli(n, n_from, noise_seed, rt7=False):
 
 def main():
     args = sys.argv[1:]
+    if args and args[0] == "--mesh":
+        seeds = NOISE_SEEDS
+        if "--noise" in args:
+            k = args.index("--noise")
+            seeds = [None if int(args[k + 1]) == 0 else int(args[k + 1])]
+        for seed in seeds:
+            run_mesh(seed)
+        return
     if args and args[0] in ("--cli", "--cli-rt7"):
         rt7 = args[0] == "--cli-rt7"
         args = args[1:]
