@@ -56,7 +56,20 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
     tests/test_dist_window_scale.py (256x320, 56 frames, F=12, P=4096)
     through FullSystem.add_frame with an 8-shard placer, its health and
     sim3 ATE gated, K1's launches counted on this path;
- 9. print the `kernels` JSON line, the card line, and last the result line.
+ 9. drive the reference's hard TUM-VI-shaped evaluation (hard-eval-512,
+    tests/test_hard_eval.py) through the port's CLI for seeds 7 and 3,
+    each in a child process (`chip_smoke.py --hard-eval SEED`), the two
+    side by side on the card: the port's make_synthetic writes 300 frames
+    at 512x512 with a baked response and vignette, a +-10% auto-exposure
+    sweep and 6 s of excitation on the card, run_dataset.run reads them
+    with gammaCalib=/vignette= and the IMU; resultScaled.txt is scored
+    against gt.csv as that test scores it (>= 295 paired poses, sim3 and
+    se3 gates), with the VIO health; frames/s over the run and per
+    100-frame block, stage medians and counts, the coarse IMU init calls,
+    PGBA cycles and adoptions, K1's launches and the peak device and host
+    memory are printed; a child that fails, times out or prints no result
+    fails the smoke;
+10. print the `kernels` JSON line, the card line, and last the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -176,6 +189,28 @@ MESH_CFG = dict(f_max=12, p_max=4096, i_max=2048, max_frames=11, levels=5,
 # sim3 0.00455 / 0.01552 / 0.01408 m over 1.2309 m, each ACTIVE with 11
 # occupied slots and 17 keyframes.
 REF_MESH_SIM3 = 0.015519969965480829
+# hard-eval-512: tests/test_hard_eval.py's make_synthetic and run_dataset
+# arguments, for seeds 7 and 3; a seed's gates are max(that test's share
+# of path + 0.01, 1.5x the worst of three JAX runs of
+# `tools/reference_smoke_ate.py --hard SEED`: clean, 1e-2 intensity noise
+# from numpy seeds 1 and 2). HARD_REF holds (sim3, se3) of the runs that
+# ended ACTIVE: with the seed-2 noise the reference itself reset 5 (seed
+# 7) and 6 (seed 3) times and ended in the coarse-init phase, with no
+# metric trajectory, so the worst is taken over the other two.
+HARD_FRAMES = 300
+HARD_SYNTH = [f"n={HARD_FRAMES}", "w=512", "h=512", "excite=2.0",
+              "excite_until=6.0", "accel=0.5", "rot=0.3", "photometric=1",
+              "exposure_var=0.1", "s_dso=1.4"]
+HARD_ARGS = ["useimu=1", "preset=0", "quiet=1"]
+HARD_MIN_PAIRS = 295
+HARD_SHARE = {7: (0.025, 0.025), 3: (0.035, 0.05)}     # (sim3, se3)
+HARD_REF = {7: ((0.06435624005362435, 0.0659790883694343),
+                (0.1602069018446558, 0.17696303743305875)),
+            3: ((0.23213787617509046, 0.3124856660185122),
+                (0.18247050229106304, 0.18349096667567158))}
+HARD_BLOCK = 100
+HARD_SEEDS = (7, 3)
+HARD_TIMEOUT_S = 900
 ATOL = 1e-4            # on 0-255 intensities: a few f32 ulps at 255
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
@@ -886,6 +921,211 @@ def phase_cli(dev):
 
 
 # ---------------------------------------------------------------------------
+# Hard evaluation (hard-eval-512)
+# ---------------------------------------------------------------------------
+
+
+def rss_mib() -> float:
+    """The process's resident set now (VmRSS), in MiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return math.nan
+
+
+def hard_gates(seed, dist):
+    """(sim3, se3) gates of `seed` at path length `dist`."""
+    return tuple(max(share * dist + 0.01,
+                     1.5 * max(run[k] for run in HARD_REF[seed]))
+                 for k, share in enumerate(HARD_SHARE[seed]))
+
+
+def score_hard(out_prefix, gt_path):
+    """tests/test_hard_eval.py's scoring: resultScaled.txt paired with
+    gt.csv by timestamp; (pairs, sim3, se3, path length, finite)."""
+    est = trajectory.read_tum(out_prefix + "resultScaled.txt") \
+        if os.path.exists(out_prefix + "resultScaled.txt") else []
+    gt = trajectory.read_tum(gt_path)
+    gtd = {round(g[0], 6): g for g in gt}
+    pairs = [(e, gtd[round(e[0], 6)]) for e in est if round(e[0], 6) in gtd]
+    if len(pairs) < 3:
+        return len(pairs), math.inf, math.inf, math.nan, False
+    est_m = [p[0] for p in pairs]
+    gt_m = [p[1] for p in pairs]
+    finite = all(np.all(np.isfinite(p[1])) and np.all(np.isfinite(p[2]))
+                 for p in est_m)
+    dist = trajectory.path_length(np.stack([g[2] for g in gt_m]))
+    return (len(pairs), trajectory.ate_rmse(est_m, gt_m, with_scale=True),
+            trajectory.ate_rmse(est_m, gt_m, with_scale=False), dist, finite)
+
+
+def phase_hard_eval(dev, seed):
+    """hard-eval-512 for one seed: the dataset is written on `dev`, then
+    run_dataset.run drives it in-process with K1's count, the stage timers
+    and the peak-memory statistics set to 0 just before. FullSystem's
+    add_frame is wrapped only to stamp each frame's end, the IMU's phase
+    after it, and the host and device memory at each block's end."""
+    import resource
+    import shutil
+
+    data = os.path.join(ROOT, "build", f"hard_data_{seed}")
+    out = os.path.join(ROOT, "build", f"hard_out_{seed}") + os.sep
+    shutil.rmtree(data, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    make_synthetic.main([f"out={data}", f"seed={seed}", *HARD_SYNTH,
+                         f"device={dev}"])
+    synth_s = time.perf_counter() - t0
+    argv = [f"files={data}/images", f"calib={data}/camera.txt",
+            f"gammaCalib={data}/pcalib.txt", f"vignette={data}/vignette.png",
+            f"tsFile={data}/times.txt", f"imuFile={data}/imu.txt",
+            *HARD_ARGS, f"resultsPrefix={out}", f"device={dev}"]
+    stamps = []
+    rec = {"fs": None, "active_at": None, "rss": [], "dev": []}
+    add_frame = full_system.FullSystem.add_frame
+
+    def stamped_add_frame(self, *a, **k):
+        if not stamps:
+            stamps.append(time.perf_counter())
+        r = add_frame(self, *a, **k)
+        stamps.append(time.perf_counter())
+        if (len(stamps) - 1) % HARD_BLOCK == 0:
+            rec["rss"].append(rss_mib())
+            rec["dev"].append(torch.cuda.memory_allocated() / 2 ** 20)
+        rec["fs"] = self
+        if rec["active_at"] is None and self.imu is not None \
+                and self.imu.phase == imu_system.ACTIVE:
+            rec["active_at"] = len(stamps) - 2
+        return r
+
+    rss0 = rss_mib()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timing.reset()
+    patch_sample.sample_patch3.launches = 0
+    full_system.FullSystem.add_frame = stamped_add_frame
+    t0 = time.perf_counter()
+    try:
+        summary = run_dataset.run(argv)
+    finally:
+        full_system.FullSystem.add_frame = add_frame
+    wall = time.perf_counter() - t0
+    launches = patch_sample.sample_patch3.launches
+    peak_dev = torch.cuda.max_memory_allocated()
+    stats = timing.get_stats()
+    fs = rec["fs"]
+
+    pairs, sim3, se3, dist, finite = score_hard(
+        out, os.path.join(data, "gt.csv"))
+    gate_sim3, gate_se3 = hard_gates(seed, dist) if math.isfinite(dist) \
+        else (math.nan, math.nan)
+    ends = [min(b + HARD_BLOCK, len(stamps) - 1)
+            for b in range(0, len(stamps) - 1, HARD_BLOCK)]
+    blocks = [(e - b) / (stamps[e] - stamps[b])
+              for b, e in zip(range(0, len(stamps) - 1, HARD_BLOCK), ends)]
+    init = stats.get("imu_coarse_init", {"n": 0, "mean": 0.0})
+    res = {
+        "seed": seed, "frames": summary["frames"], "synth_s": synth_s,
+        "cli_wall_s": wall, "fps_loop": summary["fps"],
+        "fps_whole_cli": summary["frames"] / wall,
+        "fps_per_100_frames": blocks, "pairs": pairs, "ate_sim3": sim3,
+        "ate_se3": se3, "path_length": dist, "sim3_share": sim3 / dist,
+        "se3_share": se3 / dist, "gate_sim3": gate_sim3,
+        "gate_se3": gate_se3, "keyframes": summary["keyframes"],
+        "resets": summary["resets"], "lost_frames": summary["lost_frames"],
+        "imu_phase": summary["imu_phase"], "active_at": rec["active_at"],
+        "scale": summary["scale"], "coarse_init_calls": init["n"],
+        "coarse_init_total_s": init["n"] * init["mean"],
+        "pgba_cycles": summary["pgba_count"],
+        "pgba_adoptions": fs.imu.pgba_adopt_count,
+        "k1_launches": launches, "peak_device_mib": peak_dev / 2 ** 20,
+        "rss_mib_before": rss0, "rss_mib_per_100_frames": rec["rss"],
+        "device_mib_per_100_frames": rec["dev"], "rss_mib_after": rss_mib(),
+        "peak_rss_mib_process": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1024.0,
+        "stage_median_ms": {k: v["median"] * 1e3 for k, v in stats.items()},
+        "stage_calls": {k: v["n"] for k, v in stats.items()},
+    }
+    log(f"hard-eval-512 seed {seed}: " + json.dumps(res))
+    checks = [
+        (summary["frames"] == HARD_FRAMES,
+         f"{summary['frames']} frames for {HARD_FRAMES}"),
+        (pairs >= HARD_MIN_PAIRS, f"{pairs} paired poses"),
+        (summary["imu_phase"] == imu_system.ACTIVE,
+         f"IMU phase {summary['imu_phase']}"),
+        (summary["resets"] == 0, f"{summary['resets']} resets"),
+        (finite, "non-finite pose in resultScaled.txt"),
+        (launches > 0, "K1 was never launched on the hard-eval path"),
+        (math.isfinite(sim3) and sim3 < gate_sim3,
+         f"sim3 ATE {sim3} >= gate {gate_sim3}"),
+        (math.isfinite(se3) and se3 < gate_se3,
+         f"se3 ATE {se3} >= gate {gate_se3}"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise AssertionError(f"hard-eval-512 seed {seed}: " + msg)
+    return res
+
+
+def hard_eval_child(seed: int) -> int:
+    """`chip_smoke.py --hard-eval SEED`: one seed of hard-eval-512; the
+    last line of its output is its result."""
+    res = phase_hard_eval(dmvio_tpu_torch.device(), seed)
+    print(json.dumps({"hard_eval_result": res}), flush=True)
+    return 0
+
+
+def phase_hard_eval_seeds() -> dict:
+    """hard-eval-512 for every seed of HARD_SEEDS at once, one child
+    process each (the host, not the card, bounds a run, so two runs side by
+    side take about the time of one). Each child's output goes to
+    build/hard_eval_SEED.log and is echoed here; a timeout, a non-zero
+    exit or a missing result line fails the phase. Returns the results by
+    seed."""
+    logs = {seed: os.path.join(ROOT, "build", f"hard_eval_{seed}.log")
+            for seed in HARD_SEEDS}
+    procs = {}
+    try:
+        for seed in HARD_SEEDS:
+            with open(logs[seed], "w") as f:
+                procs[seed] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--hard-eval", str(seed)], stdout=f,
+                    stderr=subprocess.STDOUT, cwd=ROOT)
+        deadline = time.monotonic() + HARD_TIMEOUT_S
+        for seed, p in procs.items():
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"hard-eval-512 seed {seed}: no result "
+                                     f"within {HARD_TIMEOUT_S} s") from None
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    found = {}
+    for seed in HARD_SEEDS:
+        with open(logs[seed]) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            log(f"[hard-eval-512 seed {seed}] {line}")
+        found[seed] = [json.loads(ln)["hard_eval_result"] for ln in lines
+                       if ln.startswith('{"hard_eval_result"')]
+    results = {}
+    for seed, p in procs.items():
+        if p.returncode != 0 or not found[seed]:
+            raise AssertionError(f"hard-eval-512 seed {seed}: the child "
+                                 f"exited {p.returncode}"
+                                 + ("" if found[seed]
+                                    else " with no result line"))
+        results[seed] = found[seed][-1]
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Sharded window BA (mesh-512)
 # ---------------------------------------------------------------------------
 
@@ -1196,6 +1436,8 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--nccl-check"]:
         return nccl_check()
+    if sys.argv[1:2] == ["--hard-eval"]:
+        return hard_eval_child(int(sys.argv[2]))
     dev = dmvio_tpu_torch.device()
     card = card_line()
     log(f"card: {card}")
@@ -1223,17 +1465,24 @@ def main() -> int:
     mesh_op = phase_mesh_opshape(dev)
     k1["shard_shapes"] = mesh_op["k1_shard_shapes"]
     k1["launches_mesh_path"], _ = phase_mesh_window(dev)
+    hard = phase_hard_eval_seeds()
+    k1["launches_hard_eval_path_by_seed"] = {
+        seed: r["k1_launches"] for seed, r in hard.items()}
+    k1["launches_hard_eval_path"] = sum(
+        k1["launches_hard_eval_path_by_seed"].values())
     log(f"K1 launches: VO path {k1['launches_main_path']}, VIO path "
         f"{k1['launches_vio_path']}, realtime VO path "
         f"{k1['launches_rt_vo_path']}, realtime VIO path "
         f"{k1['launches_rt_vio_path']}, CLI path "
         f"{k1['launches_cli_path']}, mesh path "
-        f"{k1['launches_mesh_path']}")
+        f"{k1['launches_mesh_path']}, hard-eval path "
+        f"{k1['launches_hard_eval_path']}")
     k1["launches"] = (k1["launches_main_path"] + k1["launches_vio_path"]
                       + k1["launches_rt_vo_path"]
                       + k1["launches_rt_vio_path"]
                       + k1["launches_cli_path"]
-                      + k1["launches_mesh_path"])
+                      + k1["launches_mesh_path"]
+                      + k1["launches_hard_eval_path"])
     print(json.dumps({"kernels": [k1]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

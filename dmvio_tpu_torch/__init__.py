@@ -16,17 +16,35 @@ explicitly; with no CUDA device they raise instead of falling back.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 __version__ = "0.1.0"
 
-# Full-f32 products everywhere, mirroring dmvio_tpu/__init__.py
-# (_set_matmul_precision): reduced-mantissa matmuls were measured to break
-# the estimator there, and the tracker/BA normal equations span too much
-# dynamic range for TF32's 10-bit mantissa.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.set_float32_matmul_precision("highest")
+# DMVIO_MATMUL_PRECISION -> (torch's float32 matmul precision, TF32 on).
+MATMUL_PRECISIONS = {"highest": ("highest", False), "high": ("high", True),
+                     "default": ("medium", True)}
+
+
+def _set_matmul_precision() -> None:
+    """Full-f32 products unless DMVIO_MATMUL_PRECISION asks otherwise, as
+    in dmvio_tpu/__init__.py: reduced-mantissa matmuls were measured to
+    break the estimator there, and the tracker/BA normal equations span too
+    much dynamic range for TF32's 10-bit mantissa. 'high' turns TF32 on,
+    'default' maps to torch's 'medium'; any other value raises."""
+    name = os.environ.get("DMVIO_MATMUL_PRECISION", "highest")
+    if name not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"DMVIO_MATMUL_PRECISION={name!r}: expected one of "
+            f"{', '.join(MATMUL_PRECISIONS)}")
+    precision, tf32 = MATMUL_PRECISIONS[name]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision(precision)
+
+
+_set_matmul_precision()
 
 
 def device(name: str | torch.device | None = None) -> torch.device:

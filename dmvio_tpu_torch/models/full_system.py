@@ -277,7 +277,7 @@ class FullSystem:
                                       pk.bias)
             else:
                 self.imu.record_init_pose(fid, self.ref_kf_id, pk.R, pk.t,
-                                          R_cw_np)
+                                          R_cw_np, H_vis=pk.H_vis)
         if self.output_wrappers:
             self._publish_pose(fid, timestamp, pk.R @ self.ref_pose_np[0],
                                pk.R @ self.ref_pose_np[1] + pk.t)
@@ -623,7 +623,7 @@ class FullSystem:
                 elif chunk is not None:
                     self.imu.record_init_pose(p["fid"], p["ref_kf_id"],
                                               pk.R, pk.t, R_cw_np,
-                                              chunk=chunk)
+                                              chunk=chunk, H_vis=pk.H_vis)
 
         if self.output_wrappers:
             self._publish_pose(p["fid"], p["ts"], R_cw_np, t_cw_np)

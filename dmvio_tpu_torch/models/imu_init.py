@@ -13,14 +13,15 @@ of x; pair q depends only on (s_log, g2, bias, v_q, v_{q+1}), so here
 forward mode runs over those 15 local coordinates for all pairs at once
 (vio_ba.local_jacobian) and the blocks are placed into the dense Jacobian:
 the same derivatives. The reference's `while_loop` is a Python loop with
-the same early exit. The reference's optional per-pose tracker-sigma
-weighting (off by default there, behind DMVIO_INIT_SIGMAS=1) is not
-ported.
+the same early exit. The optional per-pose tracker-sigma weighting
+(`use_sig`, off by default as in the reference, set by imu_system under
+DMVIO_INIT_SIGMAS=1) inflates each pair's covariance by its endpoint
+poses' sigmas.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +60,10 @@ class CoarseInitState(NamedTuple):
     t_cw: torch.Tensor    # [N, 3]
     pre: preint.PreintState   # batched [N-1] chunks pose k -> k+1
     valid: torch.Tensor   # [N] pose slots in use (contiguous prefix)
+    # Per-pose tracked-pose sigmas from the tracker's own photometric
+    # Hessian; read only when optimize() runs with use_sig=True.
+    sig_rot: Optional[torch.Tensor] = None  # [N] rad
+    sig_pos: Optional[torch.Tensor] = None  # [N] DSO units
 
 
 class CoarseInitResult(NamedTuple):
@@ -71,19 +76,33 @@ class CoarseInitResult(NamedTuple):
     ok: torch.Tensor
 
 
-def _pair_residual(pre, R_i, t_i, R_j, t_j, ok, y, R_cb, t_cb):
+def _pair_residual(pre, R_i, t_i, R_j, t_j, ok, y, R_cb, t_cb, sig=None):
     """Weighted 9-dim residuals [Q, 9] of the pose pairs as a function of
     their local coordinates y [Q, 15] = [s_log, g2(2), bias(6), v_q(3),
-    v_q+1(3)]; pairs with `ok` False give zeros."""
+    v_q+1(3)]; pairs with `ok` False give zeros. `sig` = (sig_rot_i,
+    sig_rot_j, sig_pos_i, sig_pos_j), each [Q], inflates each pair by its
+    endpoints' tracker sigmas; None keeps the constant floor."""
     s_log, g2, bias = y[:, 0], y[:, 1:3], y[:, 3:9]
     Rb_i, pb_i = dso_to_body(R_i, t_i, s_log, g2, R_cb, t_cb)
     Rb_j, pb_j = dso_to_body(R_j, t_j, s_log, g2, R_cb, t_cb)
     r9 = preint.imu_residual(pre, Rb_i, pb_i, y[:, 9:12], Rb_j, pb_j,
                              y[:, 12:15], bias)
     ones = torch.ones(3, dtype=y.dtype, device=y.device)
-    infl = torch.diag(torch.cat([ones * SIG_VIS_ROT ** 2,
-                                 ones * SIG_VIS_VEL ** 2,
-                                 ones * SIG_VIS_POS ** 2]))
+    if sig is None:
+        infl = torch.diag(torch.cat([ones * SIG_VIS_ROT ** 2,
+                                     ones * SIG_VIS_VEL ** 2,
+                                     ones * SIG_VIS_POS ** 2]))
+    else:
+        # The floor plus both endpoints' sigmas; the velocity block also
+        # sees the positional noise differentiated over the pair's dt.
+        sr_i, sr_j, sp_i, sp_j = sig
+        v_rot = SIG_VIS_ROT ** 2 + sr_i ** 2 + sr_j ** 2
+        v_pos = SIG_VIS_POS ** 2 + sp_i ** 2 + sp_j ** 2
+        dt = torch.clamp(pre.dt, min=1e-2)
+        v_vel = SIG_VIS_VEL ** 2 + (sp_i ** 2 + sp_j ** 2) / dt ** 2
+        infl = torch.diag_embed(torch.cat([
+            v_rot[:, None] * ones, v_vel[:, None] * ones,
+            v_pos[:, None] * ones], dim=1))
     cov = pre.cov + infl
     L = torch.linalg.cholesky(
         0.5 * (cov + cov.transpose(-1, -2))
@@ -99,14 +118,18 @@ def _local(x, N: int):
     return torch.cat([glob, v[:-1], v[1:]], dim=1)
 
 
-def _linearize(x, st: CoarseInitState, R_cb, t_cb, with_jacobian: bool):
+def _linearize(x, st: CoarseInitState, R_cb, t_cb, with_jacobian: bool,
+               use_sig: bool = False):
     """(r [9(N-1)], J [9(N-1), 9 + 3N] or None) at the dense state x."""
     N = st.R_cw.shape[0]
     ok = st.valid[:-1] & st.valid[1:]
+    sig = (st.sig_rot[:-1], st.sig_rot[1:], st.sig_pos[:-1],
+           st.sig_pos[1:]) if use_sig else None
 
     def res(y):
         return _pair_residual(st.pre, st.R_cw[:-1], st.t_cw[:-1],
-                              st.R_cw[1:], st.t_cw[1:], ok, y, R_cb, t_cb)
+                              st.R_cw[1:], st.t_cw[1:], ok, y, R_cb, t_cb,
+                              sig)
 
     y = _local(x, N)
     r = res(y).reshape(-1)
@@ -125,9 +148,11 @@ def _linearize(x, st: CoarseInitState, R_cb, t_cb, with_jacobian: bool):
 
 def optimize(st: CoarseInitState, R_cb, t_cb, s_log0, g20, bias0, v0,
              iters: int = 12,
-             bias_prior: float = 1.0 / (0.1 ** 2)) -> CoarseInitResult:
+             bias_prior: float = 1.0 / (0.1 ** 2),
+             use_sig: bool = False) -> CoarseInitResult:
     """LM over [s, g2, bias, velocities] with the poses fixed; the scale
-    marginal variance gates the handoff (IMUInitializerTransitions)."""
+    marginal variance gates the handoff (IMUInitializerTransitions).
+    use_sig=True weights each pair by st.sig_rot / st.sig_pos."""
     N = st.R_cw.shape[0]
     dim = 9 + 3 * N
     dev = st.R_cw.device
@@ -137,7 +162,7 @@ def optimize(st: CoarseInitState, R_cb, t_cb, s_log0, g20, bias0, v0,
     prior_diag[3:9] = bias_prior
 
     def energy(x):
-        r, _ = _linearize(x, st, R_cb, t_cb, False)
+        r, _ = _linearize(x, st, R_cb, t_cb, False, use_sig)
         return torch.sum(r * r) + torch.sum(prior_diag * (x - x0) ** 2)
 
     # Mask velocity coords of unused slots.
@@ -148,7 +173,7 @@ def optimize(st: CoarseInitState, R_cb, t_cb, s_log0, g20, bias0, v0,
     x, e = x0, energy(x0)
     lam = torch.tensor(1e-3, device=dev)
     for _ in range(iters):
-        r, J = _linearize(x, st, R_cb, t_cb, True)
+        r, J = _linearize(x, st, R_cb, t_cb, True, use_sig)
         H = J.T @ J + torch.diag(prior_diag)
         b = J.T @ r + prior_diag * (x - x0)
         H = H * vmask[:, None] * vmask[None, :] + torch.diag(1.0 - vmask)
@@ -175,7 +200,7 @@ def optimize(st: CoarseInitState, R_cb, t_cb, s_log0, g20, bias0, v0,
             break
 
     # Scale marginal variance from the final (equilibrated) Hessian.
-    _, J = _linearize(x, st, R_cb, t_cb, True)
+    _, J = _linearize(x, st, R_cb, t_cb, True, use_sig)
     H = J.T @ J + torch.diag(prior_diag)
     H = H * vmask[:, None] * vmask[None, :] + torch.diag(1.0 - vmask)
     d = torch.sqrt(torch.clamp(torch.diagonal(H), min=1e-12))

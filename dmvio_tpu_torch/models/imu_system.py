@@ -17,13 +17,15 @@ is uploaded once per use. Pairs are (older slot, newer slot, host preint
 dict). The realtime pipeline adds its seams: frame-id-tagged chunks (the
 keyframe-to-keyframe chunk stops at a keyframe decided frames late), the
 non-mutating multi-chunk preview prediction, the asynchronous PGBA
-snapshot copy and PGBA on a background thread. Not ported: the
-tracker-sigma init weighting that the reference keeps off by default.
+snapshot copy and PGBA on a background thread. The tracker-sigma init
+weighting (per-pose sigmas from the tracker's Hessian) stays off unless
+DMVIO_INIT_SIGMAS=1, as in the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import List, Optional, Tuple
 
@@ -138,6 +140,7 @@ class IMUSystem:
         self._init_pres: List[dict] = []
         self._init_fids: List[int] = []
         self._init_dts: List[float] = []
+        self._init_sigs: List[Tuple[float, float]] = []
         self.init_result: Optional[imu_init.CoarseInitResult] = None
         self._last_init_decent = False
         # VIO window state (valid in ACTIVE phase).
@@ -180,8 +183,8 @@ class IMUSystem:
         """Drop the init window and the KF-chunk buffer (after a visual
         re-initialization the recorded poses live at another scale)."""
         for buf in (self._init_poses, self._init_pres, self._init_fids,
-                    self._init_dts, self._kf_acc, self._kf_gyr,
-                    self._kf_dts, self._kf_fids):
+                    self._init_dts, self._init_sigs, self._kf_acc,
+                    self._kf_gyr, self._kf_dts, self._kf_fids):
             buf.clear()
 
     # -- per-frame ingestion ------------------------------------------------
@@ -286,13 +289,33 @@ class IMUSystem:
             self.coarse, H_vis8_np, R_cw_np, t_cw_np, v_np, bias_np)
 
     # -- init machine -------------------------------------------------------
+    @staticmethod
+    def _tracker_pose_sigmas(H_vis) -> tuple:
+        """Marginal pose sigmas (sig_rot [rad], sig_pos [DSO units]) from
+        the tracker's 8x8 photometric Hessian (coords [t(3), w(3), rho,
+        b]), host float64, each clipped to 0.1; 0.1 for both when the
+        Hessian is singular or the result not finite."""
+        H = np.asarray(H_vis, np.float64)
+        try:
+            cov = np.linalg.inv(H + 1e-6 * np.eye(8))
+            d = np.clip(np.diag(cov), 0.0, None)
+            sig_pos = float(np.sqrt(np.mean(d[0:3])))
+            sig_rot = float(np.sqrt(np.mean(d[3:6])))
+        except np.linalg.LinAlgError:
+            return 0.1, 0.1
+        if not (np.isfinite(sig_pos) and np.isfinite(sig_rot)):
+            return 0.1, 0.1
+        return min(sig_rot, 0.1), min(sig_pos, 0.1)
+
     def record_init_pose(self, fid: int, ref_fid: int, R_rel, t_rel,
-                         R_cw_approx, chunk: Optional[dict] = None) -> None:
+                         R_cw_approx, chunk: Optional[dict] = None,
+                         H_vis=None) -> None:
         """Feed a tracked-frame pose (relative to its tracking-reference
         keyframe, resolved against the latest optimized keyframe poses at
         init time) and its chunk into the init window. `chunk` is the
         frame's own frame_chunk() in realtime mode, where the last chunk
-        has moved on by consume time."""
+        has moved on by consume time. With DMVIO_INIT_SIGMAS=1 the pose
+        also records its tracker sigmas from `H_vis`, else (0, 0)."""
         if chunk is None:
             chunk = self.frame_chunk()
         if self.phase == ACTIVE or chunk is None:
@@ -308,9 +331,16 @@ class IMUSystem:
         self._init_pres.append(chunk["pre_np"])
         self._init_fids.append(fid)
         self._init_dts.append(float(chunk["pre_np"]["dt"]))
+        # Measured and rejected as a default in the reference (its scale
+        # moved away from the truth on both of its fixtures); kept for
+        # probing.
+        use_sig = os.environ.get("DMVIO_INIT_SIGMAS", "0") == "1"
+        self._init_sigs.append(
+            self._tracker_pose_sigmas(H_vis)
+            if (H_vis is not None and use_sig) else (0.0, 0.0))
         if len(self._init_poses) > INIT_WINDOW:
             for buf in (self._init_poses, self._init_pres, self._init_fids,
-                        self._init_dts):
+                        self._init_dts, self._init_sigs):
                 buf.pop(0)
 
     def _resolve_init_poses(self, kf_poses: dict):
@@ -354,11 +384,17 @@ class IMUSystem:
                 ts[k] = t
             pres = list(self._init_pres[1:n])
             pres += [_identity_np()] * (N - 1 - len(pres))
+            sig_rot = np.zeros(N, np.float32)
+            sig_pos = np.zeros(N, np.float32)
+            for k in range(min(n, len(self._init_sigs))):
+                sig_rot[k], sig_pos[k] = self._init_sigs[k]
             st = imu_init.CoarseInitState(
                 R_cw=torch.as_tensor(Rs, device=dev),
                 t_cw=torch.as_tensor(ts, device=dev),
                 pre=preint.state_from_np(_stack_np(pres), dev),
-                valid=torch.arange(N, device=dev) < n)
+                valid=torch.arange(N, device=dev) < n,
+                sig_rot=torch.as_tensor(sig_rot, device=dev),
+                sig_pos=torch.as_tensor(sig_pos, device=dev))
             warm = self.init_result is not None and self._last_init_decent
             g20 = np.asarray(self.init_result.g2) if warm \
                 else self.gravity_guess()
@@ -386,7 +422,8 @@ class IMUSystem:
                 return torch.as_tensor(np.asarray(a, np.float32), device=dev)
             res = to_host(imu_init.optimize(
                 st, self.R_cb, self.t_cb, s_log0=f32(s0), g20=f32(g20),
-                bias0=f32(b0), v0=f32(v0), iters=25))
+                bias0=f32(b0), v0=f32(v0), iters=25,
+                use_sig=bool(np.any(sig_rot) or np.any(sig_pos))))
         self.init_result = res
         n_res = 9.0 * max(n - 1, 1)
         mean_e = float(res.energy) / n_res

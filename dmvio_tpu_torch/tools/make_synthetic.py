@@ -25,6 +25,21 @@ from dmvio_tpu_torch.io import image_rw
 from dmvio_tpu_torch.utils import lie, synthetic
 
 
+def gt_quat(R_body) -> np.ndarray:
+    """[qx, qy, qz, qw] float32 of a body rotation, rounded as the JAX
+    package's writer rounds it, so both write the same gt.csv: its
+    compiled norm fuses each square into the running sum (one fused
+    multiply-add per term, in order), i.e. every term is added exactly and
+    the sum is rounded to float32 after each."""
+    q = lie.quat_from_rot(torch.as_tensor(np.asarray(R_body),
+                                          dtype=torch.float32),
+                          normalize=False).numpy()
+    acc = np.float32(0.0)
+    for x in q.astype(np.float64):
+        acc = np.float32(x * x + np.float64(acc))
+    return q / np.sqrt(acc)
+
+
 def main(argv=None):
     args = dict(a.split("=", 1) for a in (argv or sys.argv[1:]) if "=" in a)
     if "out" not in args:
@@ -117,8 +132,7 @@ def main(argv=None):
         for i, ts in enumerate(seq["timestamps"]):
             Rb = seq["R_body"][i]
             p = seq["p_gt"][i]
-            q = lie.quat_from_rot(
-                torch.as_tensor(np.asarray(Rb), dtype=torch.float32)).numpy()
+            q = gt_quat(Rb)
             gf.write(f"{ts:.6f} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} "
                      f"{q[0]:.7f} {q[1]:.7f} {q[2]:.7f} {q[3]:.7f}\n")
 

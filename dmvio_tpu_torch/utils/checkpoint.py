@@ -80,6 +80,7 @@ def save(fs, path: str) -> None:
     if fs.imu is not None:
         imu = fs.imu
         st = {k: getattr(imu, k) for k in _IMU_HOST_FIELDS}
+        st["_init_sigs"] = list(imu._init_sigs)
         st["states"] = None if imu.states is None else to_host(imu.states)
         state["imu"] = st
     with open(path, "wb") as f:
@@ -124,6 +125,8 @@ def load(path: str, device=None):
         imu = fs.imu
         for k in _IMU_HOST_FIELDS:
             setattr(imu, k, imu_state[k])
+        imu._init_sigs = list(imu_state.get(
+            "_init_sigs", [(0.0, 0.0)] * len(imu._init_fids)))
         imu.states = None if imu_state["states"] is None \
             else _to_device(imu_state["states"], dev)
 

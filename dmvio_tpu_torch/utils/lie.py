@@ -155,8 +155,10 @@ def se3_adj(R, t) -> torch.Tensor:
     return torch.cat([top, bot], dim=-2)
 
 
-def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix -> quaternion [qx, qy, qz, qw] (Shepperd's method)."""
+def quat_from_rot(R: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """Rotation matrix -> quaternion [qx, qy, qz, qw] (Shepperd's method);
+    normalize=False returns the candidate before its division by its
+    norm."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
@@ -181,6 +183,8 @@ def quat_from_rot(R: torch.Tensor) -> torch.Tensor:
     cands = torch.stack([cw, cx, cy, cz], dim=-2)
     q = torch.gather(cands, -2, idx[..., None, None].expand(
         idx.shape + (1, 4)))[..., 0, :]
+    if not normalize:
+        return q
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 

@@ -53,6 +53,20 @@ the sim3 ATE of result.txt and the se3 ATE of resultScaled.txt against
 gt.csv after the last frame, with the path length. The port's test gates
 are max(that test's gates, 1.5x the worst of these runs).
 
+`--hard SEED` runs tests/test_hard_eval.py's evaluation (the reference's
+TUM-VI-shaped stand-in for the paper's ATE table) through the JAX CLI:
+the JAX make_synthetic with that test's arguments (300 frames at 512x512,
+photometric=1, exposure_var=0.1, 6 s of excitation; written to
+build/hard_ref_SEED/) and run_dataset with its arguments (gammaCalib=,
+vignette=, useimu=1 preset=0 quiet=1, default loader). Three runs: clean,
+and with 1e-2 intensity noise (numpy seeds 1 and 2) added to every loaded
+frame; `--noise K` runs one. Each prints the sim3 and se3 ATE of
+resultScaled.txt against gt.csv over the paired poses, as that test
+scores it, with the pair count, path length and the run's health (a run
+that ends without a metric trajectory prints its health only).
+chip_smoke.py's hard-eval-512 phase gates each seed at max(that test's
+share of path + 0.01, 1.5x the worst of these runs).
+
 `--mesh` runs the pipeline of tests/test_dist_window_scale.py (the
 sharded big window: 256x320, 56 frames of the seed-3 VIO sequence with
 accel_scale 0.5 and rot_scale 0.3, Config(f_max=12, p_max=4096,
@@ -64,6 +78,7 @@ it, with the path length and the health counters. chip_smoke.py's
 mesh-512 phase gates its big window at max(0.04 dist + 0.01, 1.5x the
 worst of these runs).
 
+    python tools/reference_smoke_ate.py --hard SEED [--noise K]
     python tools/reference_smoke_ate.py [--rt] [n_frames]
     python tools/reference_smoke_ate.py [--rt] --vio [n_frames] [--from N]
     python tools/reference_smoke_ate.py --cli [n_frames] [--from N]
@@ -354,8 +369,99 @@ def run_cli(n, n_from, noise_seed, rt7=False):
         flush=True)
 
 
+# tests/test_hard_eval.py's make_synthetic and run_dataset arguments.
+HARD_SYNTH = ["n=300", "w=512", "h=512", "excite=2.0", "excite_until=6.0",
+              "accel=0.5", "rot=0.3", "photometric=1", "exposure_var=0.1",
+              "s_dso=1.4"]
+HARD_ARGS = ["useimu=1", "preset=0", "quiet=1"]
+
+
+def run_hard(seed, noise_seed):
+    from dmvio_tpu import run_dataset
+    from dmvio_tpu.io import dataset as ds
+    from dmvio_tpu.tools import make_synthetic
+
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "build", f"hard_ref_{seed}")
+    if not os.path.exists(os.path.join(data, "meta.npz")):
+        # Parallel runs of one seed: each writes its own copy, the first
+        # rename wins.
+        tmp = f"{data}.tmp{os.getpid()}"
+        make_synthetic.main([f"out={tmp}", f"seed={seed}", *HARD_SYNTH])
+        try:
+            os.rename(tmp, data)
+        except OSError:
+            import shutil
+
+            shutil.rmtree(tmp)
+    rng = None if noise_seed is None else np.random.default_rng(noise_seed)
+    get_image = ds.DatasetReader.get_image
+
+    def noisy_get_image(self, i):
+        img = get_image(self, i)
+        if rng is not None:
+            img = img + jnp.asarray(rng.normal(0, 1e-2, img.shape),
+                                    jnp.float32)
+        return img
+
+    add_frame = full_system.FullSystem.add_frame
+    systems = []
+
+    def kept_add_frame(self, *a, **k):
+        if not systems:
+            systems.append(self)
+        return add_frame(self, *a, **k)
+
+    ds.DatasetReader.get_image = noisy_get_image
+    full_system.FullSystem.add_frame = kept_add_frame
+    t0 = time.perf_counter()
+    out = os.path.join(data, f"out_noise{noise_seed}_")
+    try:
+        summary = run_dataset.run([
+            f"files={data}/images", f"calib={data}/camera.txt",
+            f"gammaCalib={data}/pcalib.txt", f"vignette={data}/vignette.png",
+            f"tsFile={data}/times.txt", f"imuFile={data}/imu.txt",
+            f"resultsPrefix={out}", *HARD_ARGS])
+    finally:
+        ds.DatasetReader.get_image = get_image
+        full_system.FullSystem.add_frame = add_frame
+    fs = systems[0]
+    health = {"frames": summary["frames"], "keyframes": summary["keyframes"],
+              "resets": fs.stats_resets, "lost_frames": fs.stats_lost_frames,
+              "imu_phase": fs.imu.phase,
+              "wall_s_cpu": time.perf_counter() - t0}
+    if not os.path.exists(out + "resultScaled.txt"):
+        # No metric trajectory at the end (the IMU is not ACTIVE).
+        print(json.dumps({"hard": seed, "noise_seed": noise_seed,
+                          "pairs": 0, **health}), flush=True)
+        return
+    est = trajectory.read_tum(out + "resultScaled.txt")
+    gt = trajectory.read_tum(os.path.join(data, "gt.csv"))
+    gtd = {round(g[0], 6): g for g in gt}
+    pairs = [(e, gtd[round(e[0], 6)]) for e in est if round(e[0], 6) in gtd]
+    est_m = [p[0] for p in pairs]
+    gt_m = [p[1] for p in pairs]
+    dist = float(np.sum(np.linalg.norm(
+        np.diff(np.stack([g[2] for g in gt_m]), axis=0), axis=1)))
+    sim3 = trajectory.ate_rmse(est_m, gt_m, with_scale=True)
+    se3 = trajectory.ate_rmse(est_m, gt_m, with_scale=False)
+    print(json.dumps({
+        "hard": seed, "noise_seed": noise_seed, "pairs": len(pairs),
+        "sim3": sim3, "se3": se3, "path_length": dist,
+        "sim3_share": sim3 / dist, "se3_share": se3 / dist, **health}),
+        flush=True)
+
+
 def main():
     args = sys.argv[1:]
+    if args and args[0] == "--hard":
+        seeds = NOISE_SEEDS
+        if "--noise" in args:
+            k = args.index("--noise")
+            seeds = [None if int(args[k + 1]) == 0 else int(args[k + 1])]
+        for noise in seeds:
+            run_hard(int(args[1]), noise)
+        return
     if args and args[0] == "--mesh":
         seeds = NOISE_SEEDS
         if "--noise" in args:

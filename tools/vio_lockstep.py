@@ -13,6 +13,14 @@ difference of their newest tracked poses, then both final scales.
         the reference against itself, the second run's frames perturbed
         by Gaussian noise of SIGMA intensity units (numpy seed 0): how far
         an input difference of that size moves the reference alone.
+    python tools/vio_lockstep.py --cli OUT_DIR
+        tests/test_torch_hard_eval.py's CLI comparison: the reference's
+        make_synthetic writes the hard evaluation's recipe at 36 frames,
+        192x256, seed 7 into OUT_DIR; the JAX CLI reads it clean and with
+        1e-5 intensity noise on every loaded frame (numpy seeds 0, 1 and
+        2), the port's CLI reads it on the CPU; per frame, the largest
+        result.txt position gap of each noisy run and of the port to the
+        clean reference, and the keyframe counts (~6 min on the CPU).
 """
 
 import os
@@ -101,5 +109,58 @@ def main(argv):
           f"/ {b.stats_resets}", flush=True)
 
 
+def cli(out_dir):
+    """Both CLIs on one folder written by the reference (see the module
+    docstring)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from test_torch_hard_eval import ARGS, CLI_FRAMES, RECIPE
+
+    from dmvio_tpu import run_dataset as jrun
+    from dmvio_tpu.io import dataset as jds
+    from dmvio_tpu.tools import make_synthetic as jsynth
+    from dmvio_tpu_torch import run_dataset as trun
+
+    torch.set_num_threads(1)
+    data = os.path.join(out_dir, "data")
+    jsynth.main([f"out={data}", f"n={CLI_FRAMES}", *RECIPE])
+    args = [f"files={data}/images", f"calib={data}/camera.txt",
+            f"gammaCalib={data}/pcalib.txt", f"vignette={data}/vignette.png",
+            f"tsFile={data}/times.txt", f"imuFile={data}/imu.txt", *ARGS]
+    get_image = jds.DatasetReader.get_image
+    runs = {}
+    for noise_seed in (None, 0, 1, 2):
+        rng = None if noise_seed is None \
+            else np.random.default_rng(noise_seed)
+
+        def noisy(self, i, rng=rng):
+            img = get_image(self, i)
+            if rng is None:
+                return img
+            return img + jnp.asarray(rng.normal(0, 1e-5, img.shape),
+                                     jnp.float32)
+
+        prefix = os.path.join(out_dir, f"ref_noise{noise_seed}_")
+        jds.DatasetReader.get_image = noisy
+        try:
+            summary = jrun.run(args + [f"resultsPrefix={prefix}"])
+        finally:
+            jds.DatasetReader.get_image = get_image
+        runs[f"ref noise {noise_seed}"] = (prefix, summary["keyframes"])
+    prefix = os.path.join(out_dir, "port_")
+    summary = trun.run(args + [f"resultsPrefix={prefix}", "device=cpu"])
+    runs["port"] = (prefix, summary["keyframes"])
+    res = {k: np.loadtxt(p + "result.txt") for k, (p, _) in runs.items()}
+    clean = res.pop("ref noise None")
+    print("keyframes: " + ", ".join(f"{k} {kf}" for k, (_, kf)
+                                     in runs.items()))
+    print("frame " + " ".join(f"{k:>12}" for k in res))
+    for i in range(len(clean)):
+        gaps = [np.abs(r[i, 1:4] - clean[i, 1:4]).max() for r in res.values()]
+        print(f"{i:5d} " + " ".join(f"{g:12.3e}" for g in gaps), flush=True)
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if sys.argv[1:2] == ["--cli"]:
+        cli(sys.argv[2])
+    else:
+        main(sys.argv[1:])
